@@ -4,18 +4,28 @@
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (nothing is caught):
-  1. build   compile the CUDA kernels from hgnn2_torch/ops/csrc with nvcc;
-  2. kernels hold K1 (fused CCN-1D promotion + contraction) and K3 (fused
-             CCN-2D promotion + 18 contractions) against their plain
-             PyTorch versions on the card, at the serving bucket (1,024
-             QM9-shaped molecules, V = 16,384, K = 5; C = 5 and 2, both
-             channel layouts) and at K = 8; time each beside its bound;
-  3. serving save CCN2D(L=2, h=2) and CCN1D(L=20, h=2) bundles with random
-             weights in flax layout (converted by hgnn2_torch.convert),
-             load them on the card and predict 2,048 molecules; hold the
-             predictions against the same bundles served on the CPU, and
-             check through the launch counts that every layer ran its
-             kernel.
+  1. build    compile the CUDA kernels from hgnn2_torch/ops/csrc with nvcc;
+  2. kernels  hold K1 (fused CCN-1D promotion + contraction), K3 (fused
+              CCN-2D promotion + 18 contractions) and their backward
+              kernels K2 and K4 against their plain PyTorch versions on
+              the card, at the serving bucket (1,024 QM9-shaped molecules,
+              V = 16,384, K = 5; C = 5 and 2, both channel layouts) and at
+              K = 8; hold the gradient through each autograd Function
+              against autograd through the plain path; time each kernel
+              beside its bound, and K4's PyTorch prologue apart;
+  3. serving  save CCN2D(L=2, h=2) and CCN1D(L=20, h=2) bundles with random
+              weights in flax layout (converted by hgnn2_torch.convert),
+              load them on the card and predict 2,048 molecules; hold the
+              predictions against the same bundles served on the CPU, and
+              check through the launch counts that every layer ran its
+              kernel;
+  4. training train both models through cli.common.run_experiment on the
+              card (5,120 synthetic molecules, 1,024 a step, 2 epochs,
+              Adamax) from seeded flax-layout weights; check finite losses,
+              the launch counts of all four kernels, and the first steps'
+              losses and step-0 gradients against the same steps on the
+              CPU; time a step and split it into forward, backward and
+              optimizer.
 
 The last two lines are a JSON line describing each kernel and
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
@@ -26,6 +36,7 @@ card compute what they compute on the CPU.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -40,7 +51,21 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
 TOL = dict(rtol=1e-5, atol=1e-5)  # kernel vs plain: f32 sums, other order
+# gradient through a kernel pair vs autograd through the plain path:
+# f32 sums of up to K^3 terms per entry in another order, so the error
+# scales with the largest gradient, not with each entry
+GRAD_RTOL = 1e-5
 SERVE_RTOL = 1e-4  # card vs CPU predictions, relative to the largest |pred|
+# card vs CPU training steps: losses and step-0 gradients. Sums over
+# 16,384 vertices in another order (and the readout's atomics) differ in
+# the last bits; Adamax's first steps move each weight by about lr
+# whatever its gradient's size, so later losses differ a little more.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-4  # times the largest |gradient| of each tensor
+N_TRAIN_MOLS = 5120  # 4,096 train, 512 valid, 512 test
+TRAIN_BS = 1024
+TRAIN_EPOCHS = 2
+CPU_STEPS = 3
 N_SERVE_MOLS = 1024
 N_REQUESTS = 2048
 V_SERVE = 16384  # the CCN loader's vertex bucket for 10,964 vertices
@@ -106,7 +131,7 @@ def _ptxas_summary(log: str) -> list[str]:
     for line in log.splitlines():
         m = re.search(r"entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(ccn[12]d_forward)ILi(\d+)E", m.group(1))
+            k = re.search(r"(ccn[12]d_(?:for|back)ward)ILi(\d+)E", m.group(1))
             name = f"{k.group(1)}<K={k.group(2)}>" if k else m.group(1)
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
@@ -136,10 +161,44 @@ def _k8_records():
     return recs
 
 
+def _grad_check(name: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    ok = err <= GRAD_RTOL * scale and bool(torch.isfinite(got).all())
+    print(f"  {name}: max_abs_err={err:.3e}, max |grad|={scale:.3e}, "
+          f"tolerance {GRAD_RTOL} x max |grad| {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: gradient through the kernels disagrees")
+
+
+def _expect_refusal(name: str, call) -> None:
+    """A raw forward wrapper returns a tensor with no autograd graph, so in
+    grad mode it must refuse an f that requires grad (a model calling it
+    there would train each layer on its own readout alone)."""
+    try:
+        call()
+    except RuntimeError as e:
+        if "no autograd graph" not in str(e):
+            raise
+        print(f"  {name} refuses an f that requires grad in grad mode: ok")
+        return
+    raise AssertionError(f"{name} accepted an f that requires grad")
+
+
+def _f_grad(fn, f: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """d/df of sum(fn(f) * w) by autograd."""
+    f = f.detach().clone().requires_grad_()
+    (fn(f) * w).sum().backward()
+    return f.grad
+
+
 def phase_kernels(dev) -> dict[str, dict]:
-    """K1 and K3 against their plain versions, timed at the serving bucket
-    for C = 5 (first layer) and C = 2 (later layers). Returns each
-    kernel's row of the kernels line, with the C = 5 times."""
+    """K1..K4 against their plain versions, at the serving bucket for C = 5
+    (the first layer) and C = 2 (later layers) and on the K = 8 batch;
+    the gradients through promote_contract_1d/18 against autograd through
+    the plain path. Returns each kernel's row of the kernels line, timed
+    at the main path's shape: C = 5 for K1 and K3 (the first layer's
+    forward), C = 2 for K2 and K4 (the backward runs from layer 2 on)."""
     from hgnn2_torch.data import qm9
     from hgnn2_torch.nn import ccn
     from hgnn2_torch.ops import ccn_fused, contractions as P
@@ -151,63 +210,122 @@ def phase_kernels(dev) -> dict[str, dict]:
     if cb8.nbr.shape[1] != 8:
         raise AssertionError(f"K=8 batch has K={cb8.nbr.shape[1]}")
     rng = np.random.default_rng(0)
+    randn = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape, dtype=np.float32)).to(dev)
+    V, K = cb.nbr.shape
+    _expect_refusal("fused_contract_1d_forward", lambda: ccn_fused.fused_contract_1d_forward(
+        cb.chi_idx, cb.nbr, randn(V, K, 2).requires_grad_()))
+    _expect_refusal("fused_contract_forward", lambda: ccn_fused.fused_contract_forward(
+        cb.chi_idx, cb.nbr, randn(V, K, K, 2).requires_grad_(), cb.deg, cb.row_mask))
     timed = {}  # (kernel, C) -> times at the serving bucket
+    src = "hgnn2_torch/ops/csrc/ccn_fused.cu"
+    pallas = "hgnn2_tpu/ops/pallas/ccn_fused.py"
     rows = {
-        "K1": dict(name="fused_contract_1d_forward", route="cuda",
-                   source="hgnn2_torch/ops/csrc/ccn_fused.cu",
-                   replaces="hgnn2_tpu/ops/pallas/ccn_fused.py:189",
-                   max_abs_err=0.0, library_ms=None),
-        "K3": dict(name="fused_contract_forward", route="cuda",
-                   source="hgnn2_torch/ops/csrc/ccn_fused.cu",
-                   replaces="hgnn2_tpu/ops/pallas/ccn_fused.py:60",
-                   max_abs_err=0.0, library_ms=None),
+        "K1": dict(name="fused_contract_1d_forward", route="cuda", source=src,
+                   replaces=f"{pallas}:189", max_abs_err=0.0, library_ms=None),
+        "K2": dict(name="fused_contract_1d_backward", route="cuda", source=src,
+                   replaces=f"{pallas}:228", max_abs_err=0.0, library_ms=None),
+        "K3": dict(name="fused_contract_forward", route="cuda", source=src,
+                   replaces=f"{pallas}:60", max_abs_err=0.0, library_ms=None),
+        "K4": dict(name="fused_contract_backward", route="cuda", source=src,
+                   replaces=f"{pallas}:272", max_abs_err=0.0, library_ms=None),
     }
+
+    def check(key, label, got, want):
+        torch.cuda.synchronize()
+        err = _compare(f"{key} {label}", got, want)
+        rows[key]["max_abs_err"] = max(rows[key]["max_abs_err"], err)
+
+    prologue = {}
     for label, b in (("serving bucket", cb), ("K=8 graphs", cb8)):
         V, K = b.nbr.shape
         label = f"{label} V={V} K={K}"
         m = b.row_mask
+        chi, nbr, rslot = b.chi_idx, b.nbr, b.rslot
+        va = (chi >= 0) & (rslot >= 0)[:, :, None]  # valid (u, j, p)
+        n_valid_1d = int(va.sum())
+        n_valid_2d = int((va[:, :, :, None] & va[:, :, None, :]).sum())
         for C in (5, 2):
-            f1 = torch.from_numpy(rng.standard_normal((V, K, C), dtype=np.float32)).to(dev)
-            f1 = (f1 * m[:, :, None]).contiguous()
-            f2 = torch.from_numpy(rng.standard_normal((V, K, K, C), dtype=np.float32)).to(dev)
-            f2 = (f2 * (m[:, :, None] * m[:, None, :])[..., None]).contiguous()
+            f1 = (randn(V, K, C) * m[:, :, None]).contiguous()
+            f2 = (randn(V, K, K, C) * (m[:, :, None] * m[:, None, :])[..., None]).contiguous()
+            g1 = randn(V, K, 2 * C)
+            g2 = randn(V, K, K, 18 * C)
 
-            k1 = lambda: ccn_fused.fused_contract_1d_forward(b.chi_idx, b.nbr, f1)
-            p1 = lambda: P.contract_1d(P.promote_1d(b.chi_idx, b.nbr, f1))
+            k1 = lambda: ccn_fused.fused_contract_1d_forward(chi, nbr, f1)
+            p1 = lambda: P.contract_1d(P.promote_1d(chi, nbr, f1))
             out1 = k1()
-            torch.cuda.synchronize()
-            err = _compare(f"K1 {label} C={C}", out1, p1())
-            rows["K1"]["max_abs_err"] = max(rows["K1"]["max_abs_err"], err)
+            check("K1", f"{label} C={C}", out1, p1())
+            k2 = lambda: ccn_fused.fused_contract_1d_backward(chi, rslot, nbr, g1)
+            p2 = lambda: P.promote_1d_bwd(chi, rslot, nbr, P.contract_1d_transpose(g1))
+            out2 = k2()
+            check("K2", f"{label} C={C}", out2, p2())
+            _grad_check(
+                f"grad of promote_contract_1d {label} C={C}",
+                _f_grad(lambda f: ccn_fused.promote_contract_1d(chi, nbr, f, rslot), f1, g1),
+                _f_grad(lambda f: P.contract_1d(P.promote_1d(chi, nbr, f, rslot=rslot)), f1, g1))
             if b is cb:
                 n_ops = 2 * V * K * K * C
-                bound, by = _bound(_nbytes(b.chi_idx, b.nbr, f1, out1), n_ops)
+                bound, by = _bound(_nbytes(chi, nbr, f1, out1), n_ops)
                 timed[("K1", C)] = dict(ms=_time_ms(k1), plain_ms=_time_ms(p1),
+                                        bound_ms=bound, bound_by=by)
+                # two adds per valid (u, j, p) entry and channel
+                bound, by = _bound(_nbytes(chi, rslot, nbr, g1, out2),
+                                   2 * n_valid_1d * C)
+                timed[("K2", C)] = dict(ms=_time_ms(k2), plain_ms=_time_ms(p2),
                                         bound_ms=bound, bound_by=by)
 
             for compat in (False, True):
                 k3 = lambda: ccn_fused.fused_contract_forward(
-                    b.chi_idx, b.nbr, f2, b.deg, b.row_mask, compat=compat)
-                p3 = lambda: P.contract_18(P.promote_2d(b.chi_idx, b.nbr, f2),
-                                           b.deg, b.row_mask, compat=compat)
+                    chi, nbr, f2, b.deg, m, compat=compat)
+                p3 = lambda: P.contract_18(P.promote_2d(chi, nbr, f2),
+                                           b.deg, m, compat=compat)
                 out3 = k3()
-                torch.cuda.synchronize()
-                err = _compare(f"K3 {label} C={C} compat={compat}", out3, p3())
-                rows["K3"]["max_abs_err"] = max(rows["K3"]["max_abs_err"], err)
+                check("K3", f"{label} C={C} compat={compat}", out3, p3())
+                pro = lambda: [t.contiguous() for t in P.contract_18_transpose_parts(
+                    g2, b.deg, m, compat=compat)]
+                parts = pro()
+                k4 = lambda: ccn_fused.fused_contract_backward_parts(chi, rslot, nbr, *parts)
+                p4 = lambda: P.promote_2d_bwd(chi, rslot, nbr, P.gbar_from_parts(*parts))
+                out4 = k4()
+                check("K4", f"{label} C={C} compat={compat}", out4, p4())
+                check("K4", f"{label} C={C} compat={compat} from g (prologue + K4) "
+                      "vs promote_2d_bwd(contract_18_transpose(g))",
+                      ccn_fused.fused_contract_backward(chi, rslot, nbr, g2, b.deg, m,
+                                                        compat=compat),
+                      P.promote_2d_bwd(chi, rslot, nbr, P.contract_18_transpose(
+                          g2, b.deg, m, compat=compat)))
+                _grad_check(
+                    f"grad of promote_contract_18 {label} C={C} compat={compat}",
+                    _f_grad(lambda f: ccn_fused.promote_contract_18(
+                        chi, nbr, f, b.deg, m, rslot, compat=compat), f2, g2),
+                    _f_grad(lambda f: P.contract_18(P.promote_2d(
+                        chi, nbr, f, rslot=rslot), b.deg, m, compat=compat), f2, g2))
                 if b is cb and not compat:
                     # per (v, c): 2 adds for each of the K^3 promoted
                     # entries, ~22 K^2 for the reductions and 18 channels
                     n_ops = V * C * (2 * K ** 3 + 22 * K * K)
-                    bound, by = _bound(_nbytes(b.chi_idx, b.nbr, f2, b.deg,
-                                               b.row_mask, out3), n_ops)
+                    bound, by = _bound(_nbytes(chi, nbr, f2, b.deg, m, out3), n_ops)
                     timed[("K3", C)] = dict(
                         ms=_time_ms(k3), plain_ms=_time_ms(p3),
                         bound_ms=bound, bound_by=by)
-    for (key, C), t in timed.items():
+                    # about four adds per valid (u, j, p, q) entry and channel
+                    bound, by = _bound(_nbytes(chi, rslot, nbr, *parts, out4),
+                                       4 * n_valid_2d * C)
+                    timed[("K4", C)] = dict(ms=_time_ms(k4), plain_ms=_time_ms(p4),
+                                            bound_ms=bound, bound_by=by)
+                    # the prologue reads g and writes the four parts
+                    bound, by = _bound(_nbytes(g2, b.deg, m, *parts), 0)
+                    prologue[C] = dict(ms=_time_ms(pro), bound_ms=bound)
+    for (key, C), t in sorted(timed.items()):
         print(f"  {key} {rows[key]['name']} at V={V_SERVE} K=5 C={C}: "
               f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
               f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), library none")
-    for key, row in rows.items():
-        row.update(timed[(key, 5)])  # the kernels line: the first layer's shape
+    for C, t in sorted(prologue.items()):
+        print(f"  K4 prologue contract_18_transpose_parts (PyTorch ops) at "
+              f"V={V_SERVE} K=5 C={C}: {t['ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms (bytes)")
+    for key, C in (("K1", 5), ("K2", 2), ("K3", 5), ("K4", 2)):
+        rows[key].update(timed[(key, C)])
     return rows
 
 
@@ -252,22 +370,29 @@ def _breakdown(sm, chunk) -> None:
           f"time (CUDA events)")
 
 
+def _counters() -> dict:
+    from hgnn2_torch.ops import ccn_fused
+
+    return {"K1": ccn_fused.fused_contract_1d_forward,
+            "K2": ccn_fused.fused_contract_1d_backward,
+            "K3": ccn_fused.fused_contract_forward,
+            "K4": ccn_fused.fused_contract_backward}
+
+
 def phase_serving(dev, card: str) -> dict[str, int]:
     """Serve both CCN models through bundles on the card and on the CPU.
-    Returns the launch count of each kernel in its model's run."""
+    Returns each kernel's launches summed over the two models' runs."""
     from hgnn2_torch import convert, serving
     from hgnn2_torch.data import qm9
     from hgnn2_torch.nn import ccn
-    from hgnn2_torch.ops import ccn_fused
 
     requests = qm9.synthetic_qm9_like(N_REQUESTS, seed=1)
     ys = np.array([r.y[0] for r in requests])
     sizes = np.array([[r.n_nodes] for r in requests])
     n_chunks = len(list(serving._greedy_spans(
         sizes, (SERVE_BUCKETS[0][1],), SERVE_BUCKETS[0][0])))
-    counters = {"K1": ccn_fused.fused_contract_1d_forward,
-                "K3": ccn_fused.fused_contract_forward}
-    launches = {}
+    counters = _counters()
+    launches = dict.fromkeys(counters, 0)
     for name, cls, n_layers, key, seed in (
             ("CCN2D", ccn.CCN2D, 2, "K3", 1), ("CCN1D", ccn.CCN1D, 20, "K1", 2)):
         model = cls(n_features=5, hidden=2, n_layers=n_layers)
@@ -288,7 +413,8 @@ def phase_serving(dev, card: str) -> dict[str, int]:
         preds = sm.predict(requests)  # the main path
         secs = time.perf_counter() - t0
         got = {k: c.launches for k, c in counters.items()}
-        launches[key] = got[key]
+        for k, n in got.items():
+            launches[k] += n
 
         want = {k: 0 for k in counters}
         want[key] = n_layers * n_chunks
@@ -307,6 +433,173 @@ def phase_serving(dev, card: str) -> dict[str, int]:
               f"max |pred|={scale:.3e}, tolerance {SERVE_RTOL} x max |pred|")
         if err > SERVE_RTOL * scale:
             raise AssertionError(f"{name}: card and CPU predictions disagree")
+    return launches
+
+
+def _train_cfg(arch: str, n_layers: int, device: str, log_path: str):
+    """The training phase's configuration: h = 2, 1,024 molecules a step,
+    Adamax at lr 1e-3, on the synthetic QM9-shaped molecules."""
+    from hgnn2_torch.training.config import TrainConfig
+
+    cfg = TrainConfig(batch_size=TRAIN_BS, epochs=TRAIN_EPOCHS, seed=0,
+                      device=device, log_path=log_path)
+    cfg.optim.optim, cfg.optim.lr = "adamax", 1e-3
+    cfg.model.arch, cfg.model.n_features, cfg.model.n_layers = arch, 2, n_layers
+    cfg.data.dataset, cfg.data.n_synthetic = "qm9_synthetic", N_TRAIN_MOLS
+    return cfg
+
+
+def _train_setup(cfg, params, device):
+    """The model (kernels on where use_kernel says so) from the flax
+    params, the optimizer, the train batches in deal order, mean and std:
+    the pieces of run_experiment's first epoch, on ``device``."""
+    from hgnn2_torch import convert
+    from hgnn2_torch.cli import common
+    from hgnn2_torch.data import batching, qm9, stats, synthetic
+    from hgnn2_torch.ops import ccn_fused
+    from hgnn2_torch.training import optim
+
+    records = qm9.synthetic_qm9_like(cfg.data.n_synthetic, seed=cfg.seed)
+    ts = stats.compute_target_stats(records)
+    train_recs = synthetic.split_80_10_10(records, seed=cfg.seed)[0]
+    loader = batching.CCNLoader(train_recs, cfg.batch_size, task=0,
+                                device=device)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, ccn_kernel=ccn_fused.use_kernel(loader.k_max, device)))
+    model = common.build_model(cfg, "regression", records[0].x.shape[1])
+    model.load_state_dict(convert.ccn_params_from_flax(params))
+    model.to(device)
+    opt, sched = optim.build_optimizer(cfg.optim, len(loader), model.parameters())
+    return model, opt, sched, list(loader), float(ts.mean[0]), float(ts.std[0])
+
+
+def _first_steps(cfg, params, device) -> tuple[list[float], dict]:
+    """CPU_STEPS train steps over the first train batches on ``device``:
+    each step's loss and the step-0 gradient of every parameter."""
+    from hgnn2_torch.training import train
+
+    model, opt, sched, batches, mean, std = _train_setup(cfg, params, device)
+    losses, grads = [], None
+    for batch in batches[:CPU_STEPS]:
+        mets = train.train_step(model, opt, sched, batch, mean=mean, std=std)
+        losses.append(float(mets["loss"]))
+        if grads is None:
+            grads = {n: p.grad.detach().cpu().clone()
+                     for n, p in model.named_parameters()}
+    return losses, grads
+
+
+def _step_times(cfg, params, card: str) -> None:
+    """Host-clock time of an epoch of train steps (what a trainer waits
+    for), and one step's device time split into forward (with the loss),
+    backward and optimizer by CUDA events, with the device held busy
+    while the host enqueues the step."""
+    from hgnn2_torch.training import train
+
+    t0 = time.perf_counter()
+    model, opt, sched, batches, mean, std = _train_setup(cfg, params, "cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    train.train_step(model, opt, sched, batches[0], mean=mean, std=std)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in batches:
+        train.train_step(model, opt, sched, batch, mean=mean, std=std)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n_mols = sum(int(b.gmask.sum()) for b in batches)
+    splits = []
+    for batch in batches:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        model.train()
+        opt.zero_grad(set_to_none=True)
+        torch.cuda._sleep(10 * BUSY_CYCLES)
+        ev[0].record()
+        out = model(batch)
+        loss, _ = train._loss_and_metrics(out, batch.y, batch.gmask,
+                                          "regression", mean, std)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        sched.step()
+        ev[3].record()
+        ev[3].synchronize()
+        splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+    fwd, bwd, upd = np.median(np.array(splits), axis=0)
+    print(f"  {cfg.model.arch} L={cfg.model.n_layers}: set-up {setup_s:.3f} s "
+          f"(host clock: {cfg.data.n_synthetic} records generated, target "
+          f"stats, {len(batches)} train batches built and copied, model)")
+    print(f"  {cfg.model.arch} L={cfg.model.n_layers}: {len(batches)} steps of "
+          f"{cfg.batch_size} molecules in {secs:.4f} s (host clock): "
+          f"{secs / len(batches) * 1e3:.3f} ms/step, {n_mols / secs:.1f} "
+          f"molecules/s on {card}")
+    print(f"  {cfg.model.arch} L={cfg.model.n_layers} one step, device time "
+          f"(CUDA events, median of {len(splits)}): forward+loss {fwd:.3f} ms, "
+          f"backward {bwd:.3f} ms, optimizer {upd:.3f} ms, total "
+          f"{fwd + bwd + upd:.3f} ms")
+
+
+def phase_training(card: str) -> dict[str, int]:
+    """Train CCN2D(L=2, h=2) and CCN1D(L=20, h=2) through run_experiment on
+    the card. Returns each kernel's launches summed over the two runs."""
+    from hgnn2_torch.cli import common
+
+    counters = _counters()
+    launches = dict.fromkeys(counters, 0)
+    n_train = int(0.8 * N_TRAIN_MOLS)
+    n_eval = N_TRAIN_MOLS - n_train  # valid + test, each under one batch
+    steps = TRAIN_EPOCHS * -(-n_train // TRAIN_BS)
+    eval_batches = TRAIN_EPOCHS * 2 * -(-(n_eval // 2) // TRAIN_BS)
+    for name, arch, n_layers, fwd, bwd, n_channels, seed in (
+            ("CCN2D", "ccn2d", 2, "K3", "K4", 18, 3),
+            ("CCN1D", "ccn1d", 20, "K1", "K2", 2, 4)):
+        params = _flax_params(5, 2, n_layers, n_channels, seed)
+        cfg = _train_cfg(arch, n_layers, "cuda",
+                         os.path.join(OUT_DIR, f"train_{arch}"))
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, history = common.run_experiment(cfg, init_params=params)  # the main path
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {k: c.launches for k, c in counters.items()}
+        for k, n in got.items():
+            launches[k] += n
+
+        want = dict.fromkeys(counters, 0)
+        want[fwd] = n_layers * (steps + eval_batches)
+        want[bwd] = (n_layers - 1) * steps
+        losses = [(row["train_loss"], row["valid_loss"], row["test_loss"])
+                  for row in history]
+        print(f"  {name} L={n_layers} h=2: run_experiment, {TRAIN_EPOCHS} epochs "
+              f"x {steps // TRAIN_EPOCHS} steps of {TRAIN_BS} molecules, "
+              f"{secs:.2f} s host clock on {card} (batch builds included); "
+              f"(train, valid, test) loss per epoch {losses}; launches {got} "
+              f"(expected {want})")
+        if not cfg.model.ccn_kernel:
+            raise AssertionError(f"{name}: run_experiment did not enable the kernels")
+        if got != want:
+            raise AssertionError(f"{name}: kernel launches {got} != {want}")
+        if len(history) != TRAIN_EPOCHS or not all(
+                np.isfinite(v) for row in history for v in row.values()):
+            raise AssertionError(f"{name}: training history not finite: {history}")
+
+        card_losses, card_grads = _first_steps(cfg, params, "cuda")
+        cpu_losses, cpu_grads = _first_steps(
+            _train_cfg(arch, n_layers, "cpu", cfg.log_path), params, "cpu")
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+        grad_err = max(float((card_grads[k] - g).abs().max() / g.abs().max().clamp_min(1e-30))
+                       for k, g in cpu_grads.items())
+        print(f"  {name} first {CPU_STEPS} steps, card {card_losses} vs CPU "
+              f"{cpu_losses}: max rel loss err {loss_err:.3e} (tolerance "
+              f"{TRAIN_LOSS_RTOL}); step-0 gradients max err / max |grad| "
+              f"{grad_err:.3e} over {len(cpu_grads)} tensors (tolerance "
+              f"{TRAIN_GRAD_RTOL})")
+        if loss_err > TRAIN_LOSS_RTOL or grad_err > TRAIN_GRAD_RTOL:
+            raise AssertionError(f"{name}: card and CPU training steps disagree")
+        _step_times(cfg, params, card)
     return launches
 
 
@@ -339,9 +632,12 @@ def main() -> None:
 
     print("phase 3: serving")
     shutil.rmtree(OUT_DIR, ignore_errors=True)
-    launches = phase_serving(dev, card)
-    for key, row in rows.items():
-        row["launches"] = launches[key]
+    served = phase_serving(dev, card)
+
+    print("phase 4: training")
+    trained = phase_training(card)
+    for key, row in rows.items():  # launches of both main paths' runs
+        row["launches"] = served[key] + trained[key]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}

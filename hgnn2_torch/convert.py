@@ -26,3 +26,20 @@ def ccn_params_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         state[f"{name}.bias"] = torch.from_numpy(
             np.asarray(dense["bias"], dtype=np.float32).copy())
     return state
+
+
+def ccn_params_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, dict]:
+    """The inverse of ccn_params_from_flax: a CCN1D/CCN2D state_dict ->
+    {name: {"kernel": (in, out), "bias": (out,)}} of float32 numpy arrays,
+    the layout of the JAX models' params."""
+    params: dict[str, dict] = {}
+    for key, t in state_dict.items():
+        name, field = key.rsplit(".", 1)
+        arr = t.detach().cpu().numpy().astype(np.float32)
+        if field == "weight":
+            params.setdefault(name, {})["kernel"] = arr.T.copy()
+        elif field == "bias":
+            params.setdefault(name, {})["bias"] = arr.copy()
+        else:
+            raise ValueError(f"unexpected state_dict entry {key!r}")
+    return params

@@ -1,7 +1,7 @@
 """QM9-shaped synthetic molecules (counterpart of hgnn2_tpu/data/qm9.py).
 
-Only the synthetic generator is ported so far; xyz parsing and caches come
-with the data-ingestion slice. The numpy RNG calls are made in the same
+Only the synthetic generator and the chemical-accuracy table are ported
+so far; xyz parsing and caches come with the data-ingestion slice. The numpy RNG calls are made in the same
 order as the JAX package's generator, so one seed gives bit-equal records
 in both packages.
 """
@@ -11,6 +11,13 @@ from __future__ import annotations
 import numpy as np
 
 from hgnn2_torch.graphs import GraphRecord
+
+# chemical accuracy per QM9 task, in the task order of the targets
+CHEMICAL_ACCURACY = np.array(
+    [0.1, 0.05, 0.043, 0.043, 0.043, 0.043, 0.043, 0.1, 10.0, 1.2, 0.043,
+     0.043, 0.0012],
+    dtype=np.float32,
+)
 
 _ONE_HOT = {"H": 0, "C": 1, "N": 2, "O": 3}
 

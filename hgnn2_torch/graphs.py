@@ -1,13 +1,14 @@
 """Host-side graph record (counterpart of hgnn2_tpu/graphs.py:GraphRecord).
 
-Only what the CCN serving path reads: features, adjacency, targets, the
-node count and the memoized max degree. The line graph comes with the
-line-graph slice.
+Only what the CCN path reads: features, adjacency, targets, the node count
+and the memoized max degree, and the bucket choice of the loaders. The
+line graph comes with the line-graph slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import numpy as np
 
@@ -30,3 +31,11 @@ class GraphRecord:
         if self._max_degree is None:
             self._max_degree = int((np.asarray(self.adj) > 0).sum(1).max())
         return self._max_degree
+
+
+def pad_to_bucket(n: int, buckets: Sequence[int]) -> int:
+    """Smallest bucket >= n; raises if none fits."""
+    for b in sorted(buckets):
+        if b >= n:
+            return b
+    raise ValueError(f"size {n} exceeds largest bucket {max(buckets)}")

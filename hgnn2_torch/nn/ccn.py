@@ -1,13 +1,15 @@
-"""Covariant compositional networks, CCN-1D and CCN-2D, eval-mode forward
+"""Covariant compositional networks, CCN-1D and CCN-2D
 (counterpart of hgnn2_tpu/nn/ccn.py).
 
 Every vertex of every graph in a batch advances together: per-vertex
 ragged states become (V, K, C) / (V, K, K, C) with K the padded
 receptive-field size and a row mask, and the chi matrices are the index
-table chi_idx (V, K, K). Each layer is promotion + contraction (one fused
-CUDA kernel with ``kernel=True`` on the card, else the plain PyTorch
-version), then Linear, ReLU and the row mask. Training (the backward
-kernels) comes with the next slice.
+table chi_idx (V, K, K). Each layer is promotion + contraction, then
+Linear, ReLU and the row mask. With ``kernel=True`` the promotion +
+contraction is one fused CUDA kernel forward and one backward
+(ops/ccn_fused.promote_contract_*); otherwise it is the plain PyTorch
+version, whose promotion backward is the gather-form adjoint. The
+forward is the same in train and eval mode (no BN, no dropout).
 """
 
 from __future__ import annotations
@@ -211,9 +213,10 @@ class CCN1D(_CCN):
 
     def _contract(self, cb, f):
         if self.kernel:
-            return ccn_fused.fused_contract_1d_forward(cb.chi_idx, cb.nbr, f)
+            return ccn_fused.promote_contract_1d(cb.chi_idx, cb.nbr, f,
+                                                 cb.rslot)
         return contractions.contract_1d(
-            contractions.promote_1d(cb.chi_idx, cb.nbr, f))
+            contractions.promote_1d(cb.chi_idx, cb.nbr, f, rslot=cb.rslot))
 
 
 class CCN2D(_CCN):
@@ -237,9 +240,9 @@ class CCN2D(_CCN):
 
     def _contract(self, cb, f):
         if self.kernel:
-            return ccn_fused.fused_contract_forward(
-                cb.chi_idx, cb.nbr, f, cb.deg, cb.row_mask,
+            return ccn_fused.promote_contract_18(
+                cb.chi_idx, cb.nbr, f, cb.deg, cb.row_mask, cb.rslot,
                 compat=self.compat_contractions)
         return contractions.contract_18(
-            contractions.promote_2d(cb.chi_idx, cb.nbr, f), cb.deg,
-            cb.row_mask, compat=self.compat_contractions)
+            contractions.promote_2d(cb.chi_idx, cb.nbr, f, rslot=cb.rslot),
+            cb.deg, cb.row_mask, compat=self.compat_contractions)

@@ -1,17 +1,27 @@
-"""Fused CCN promotion + contraction forward: wrappers of the CUDA kernels
-in csrc/ccn_fused.cu (counterpart of hgnn2_tpu/ops/pallas/ccn_fused.py).
+"""Fused CCN promotion + contraction, forward and backward: wrappers of the
+CUDA kernels in csrc/ccn_fused.cu (counterpart of
+hgnn2_tpu/ops/pallas/ccn_fused.py).
 
-  fused_contract_1d_forward == contract_1d(promote_1d(chi_idx, nbr, f))
-  fused_contract_forward    == contract_18(promote_2d(chi_idx, nbr, f),
-                                           deg, row_mask, compat)
+  fused_contract_1d_forward  (K1) == contract_1d(promote_1d(chi_idx, nbr, f))
+  fused_contract_1d_backward (K2) == promote_1d_bwd(contract_1d_transpose(g))
+  fused_contract_forward     (K3) == contract_18(promote_2d(chi_idx, nbr, f),
+                                                 deg, row_mask, compat)
+  fused_contract_backward    (K4) == promote_2d_bwd(contract_18_transpose(g))
+
+promote_contract_1d and promote_contract_18 pair K1 with K2 and K3 with K4
+as torch.autograd.Functions (the JAX package's custom VJPs _op1d, _op).
 
 For CUDA tensors each wrapper launches its kernel (one launch, on the
 current stream) and adds one to its ``launches`` count; a kernel that
 cannot run raises. For CPU tensors it runs the plain PyTorch version in
 ops/contractions.py. The TPU kernels' lane layout and +-halo window do not
 carry over: the CUDA kernels index neighbours directly, so there is no
-limit on graph size, only K <= MAX_K. The backward kernels come with the
-training slice.
+limit on graph size, only K <= MAX_K.
+
+The raw forward wrappers return a fresh tensor that the kernel fills, with
+no autograd graph. So on CUDA they refuse an ``f`` that requires grad while
+grad mode is on: a model that called them there would train each layer on
+its own readout alone. Differentiable callers use the autograd Functions.
 """
 
 from __future__ import annotations
@@ -29,6 +39,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "hgnn2_ccn1d_forward": [_P, _P, _P, _P, _I, _I, _I, _P],
     "hgnn2_ccn2d_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "hgnn2_ccn1d_backward": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "hgnn2_ccn2d_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -41,18 +53,23 @@ def _kernel(name: str):
 
 
 def _check(f: torch.Tensor, n_k_axes: int, **tensors) -> None:
-    """Device, dtype, shape and contiguity checks shared by both wrappers."""
+    """Device, dtype, shape and contiguity checks shared by the wrappers.
+    f is the (V, K[, K], C') feature or gradient tensor."""
     V, K = f.shape[0], f.shape[1]
+    if K > MAX_K:
+        raise ValueError(
+            f"fused kernels unroll over K={K} > {MAX_K}; use the plain path "
+            "for high-degree graphs")
     if f.dim() != 2 + n_k_axes or tuple(f.shape[1:1 + n_k_axes]) != (K,) * n_k_axes:
         raise ValueError(f"f must be (V{', K' * n_k_axes}, C); got {tuple(f.shape)}")
     if f.dtype != torch.float32:
         raise TypeError(f"f must be float32; got {f.dtype}")
-    shapes = {"chi_idx": (V, K, K), "nbr": (V, K), "deg": (V,),
-              "row_mask": (V, K)}
+    shapes = {"chi_idx": (V, K, K), "nbr": (V, K), "rslot": (V, K),
+              "deg": (V,), "row_mask": (V, K)}
     for name, t in tensors.items():
         if tuple(t.shape) != shapes[name]:
             raise ValueError(f"{name} must be {shapes[name]}; got {tuple(t.shape)}")
-        want = torch.int32 if name in ("chi_idx", "nbr") else torch.float32
+        want = torch.float32 if name in ("deg", "row_mask") else torch.int32
         if t.dtype != want:
             raise TypeError(f"{name} must be {want}; got {t.dtype}")
         if t.device != f.device:
@@ -65,6 +82,13 @@ def _check(f: torch.Tensor, n_k_axes: int, **tensors) -> None:
         raise ValueError(f"unsupported device {f.device}")
 
 
+def _check_no_grad(f: torch.Tensor, name: str) -> None:
+    if f.device.type == "cuda" and torch.is_grad_enabled() and f.requires_grad:
+        raise RuntimeError(
+            f"{name} has no autograd graph: in grad mode use "
+            "promote_contract_1d / promote_contract_18")
+
+
 def _launch(name: str, f: torch.Tensor, *args) -> None:
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream(f.device).cuda_stream
@@ -75,17 +99,14 @@ def _launch(name: str, f: torch.Tensor, *args) -> None:
 
 def fused_contract_1d_forward(chi_idx: torch.Tensor, nbr: torch.Tensor,
                               f: torch.Tensor) -> torch.Tensor:
-    """contract_1d(promote_1d(chi_idx, nbr, f)) in one kernel.
+    """contract_1d(promote_1d(chi_idx, nbr, f)) in one kernel (K1).
     chi_idx (V, K, K) int32, nbr (V, K) int32, f (V, K, C) float32.
     Returns (V, K, 2C): row sums then col sums on the channel axis."""
     V, K, C = f.shape
-    if K > MAX_K:
-        raise ValueError(
-            f"fused 1D kernel unrolls over K={K} > {MAX_K}; use the plain "
-            "path for high-degree graphs")
     _check(f, 1, chi_idx=chi_idx, nbr=nbr)
     if f.device.type == "cpu":
         return contractions.contract_1d(contractions.promote_1d(chi_idx, nbr, f))
+    _check_no_grad(f, "fused_contract_1d_forward")
     out = torch.empty((V, K, 2 * C), dtype=torch.float32, device=f.device)
     _launch("hgnn2_ccn1d_forward", f, chi_idx.data_ptr(), nbr.data_ptr(),
             f.data_ptr(), out.data_ptr(), V, K, C)
@@ -96,25 +117,46 @@ def fused_contract_1d_forward(chi_idx: torch.Tensor, nbr: torch.Tensor,
 fused_contract_1d_forward.launches = 0
 
 
+def fused_contract_1d_backward(chi_idx: torch.Tensor, rslot: torch.Tensor,
+                               nbr: torch.Tensor,
+                               g: torch.Tensor) -> torch.Tensor:
+    """df of the fused 1D op in one kernel (K2): g (V, K, 2C) float32 ->
+    (V, K, C), df[u,p] = sum_j (g_row[nbr[u,j], chi[u,j,p]]
+    + g_col[nbr[u,j], rslot[u,j]]) over valid (rslot, chi) entries."""
+    g = g.contiguous()
+    _check(g, 1, chi_idx=chi_idx, rslot=rslot, nbr=nbr)
+    V, K, C2 = g.shape
+    if C2 % 2:
+        raise ValueError(f"g must be (V, K, 2C); got {tuple(g.shape)}")
+    if g.device.type == "cpu":
+        return contractions.promote_1d_bwd(
+            chi_idx, rslot, nbr, contractions.contract_1d_transpose(g))
+    df = torch.empty((V, K, C2 // 2), dtype=torch.float32, device=g.device)
+    _launch("hgnn2_ccn1d_backward", g, chi_idx.data_ptr(), rslot.data_ptr(),
+            nbr.data_ptr(), g.data_ptr(), df.data_ptr(), V, K, C2 // 2)
+    fused_contract_1d_backward.launches += 1
+    return df
+
+
+fused_contract_1d_backward.launches = 0
+
+
 def fused_contract_forward(chi_idx: torch.Tensor, nbr: torch.Tensor,
                            f: torch.Tensor, deg: torch.Tensor,
                            row_mask: torch.Tensor,
                            compat: bool = False) -> torch.Tensor:
     """contract_18(promote_2d(chi_idx, nbr, f), deg, row_mask, compat) in
-    one kernel; the (V, K, K, K, C) promotion tensor is never written.
+    one kernel (K3); the (V, K, K, K, C) promotion tensor is never written.
     f (V, K, K, C) float32, deg (V,) float32, row_mask (V, K) float32.
     Returns (V, K, K, 18C), channel index block * C + c."""
     V, K = f.shape[0], f.shape[1]
     C = f.shape[-1]
-    if K > MAX_K:
-        raise ValueError(
-            f"fused kernel unrolls over K={K} > {MAX_K}; use the scan path "
-            "for high-degree graphs")
     _check(f, 2, chi_idx=chi_idx, nbr=nbr, deg=deg, row_mask=row_mask)
     if f.device.type == "cpu":
         return contractions.contract_18(
             contractions.promote_2d(chi_idx, nbr, f), deg, row_mask,
             compat=compat)
+    _check_no_grad(f, "fused_contract_forward")
     out = torch.empty((V, K, K, 18 * C), dtype=torch.float32, device=f.device)
     _launch("hgnn2_ccn2d_forward", f, chi_idx.data_ptr(), nbr.data_ptr(),
             f.data_ptr(), deg.data_ptr(), row_mask.data_ptr(), out.data_ptr(),
@@ -124,6 +166,106 @@ def fused_contract_forward(chi_idx: torch.Tensor, nbr: torch.Tensor,
 
 
 fused_contract_forward.launches = 0
+
+
+def fused_contract_backward(chi_idx: torch.Tensor, rslot: torch.Tensor,
+                            nbr: torch.Tensor, g: torch.Tensor,
+                            deg: torch.Tensor, row_mask: torch.Tensor,
+                            compat: bool = False) -> torch.Tensor:
+    """df of the fused 2D op: g (V, K, K, 18C) float32 -> (V, K, K, C).
+    The prologue contract_18_transpose_parts (plain PyTorch, as it was XLA
+    outside the Pallas kernel) folds g into four (V, K, K, C) tensors; one
+    kernel (K4) then gathers them per neighbour, so the (V, K, K, K, C)
+    gbar is never written."""
+    g = g.contiguous()
+    if g.dim() != 4 or g.shape[-1] % 18:
+        raise ValueError(f"g must be (V, K, K, 18C); got {tuple(g.shape)}")
+    _check(g, 2, chi_idx=chi_idx, rslot=rslot, nbr=nbr, deg=deg,
+           row_mask=row_mask)
+    parts = [p.contiguous() for p in contractions.contract_18_transpose_parts(
+        g, deg, row_mask, compat=compat)]
+    return fused_contract_backward_parts(chi_idx, rslot, nbr, *parts)
+
+
+def fused_contract_backward_parts(chi_idx, rslot, nbr, d_sk, d_rb, d_diag,
+                                  d_kakT) -> torch.Tensor:
+    """K4 alone, on the four (V, K, K, C) parts of
+    contract_18_transpose_parts: df[u,p,q] = sum_j over valid slots of
+    gbar[nbr[u,j], rslot[u,j], chi[u,j,p], chi[u,j,q]]. Its launches count
+    on fused_contract_backward."""
+    V, K = d_sk.shape[0], d_sk.shape[1]
+    C = d_sk.shape[-1]
+    for name, t in (("d_rb", d_rb), ("d_diag", d_diag), ("d_kakT", d_kakT)):
+        if t.shape != d_sk.shape or t.device != d_sk.device:
+            raise ValueError(f"{name} must be {tuple(d_sk.shape)} on {d_sk.device}")
+        _check(t, 2)
+    _check(d_sk, 2, chi_idx=chi_idx, rslot=rslot, nbr=nbr)
+    if d_sk.device.type == "cpu":
+        return contractions.promote_2d_bwd(
+            chi_idx, rslot, nbr,
+            contractions.gbar_from_parts(d_sk, d_rb, d_diag, d_kakT))
+    df = torch.empty((V, K, K, C), dtype=torch.float32, device=d_sk.device)
+    _launch("hgnn2_ccn2d_backward", d_sk, chi_idx.data_ptr(), rslot.data_ptr(),
+            nbr.data_ptr(), d_sk.data_ptr(), d_rb.data_ptr(),
+            d_diag.data_ptr(), d_kakT.data_ptr(), df.data_ptr(), V, K, C)
+    fused_contract_backward.launches += 1
+    return df
+
+
+fused_contract_backward.launches = 0
+
+
+class _PromoteContract1D(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, chi_idx, nbr, f, rslot):
+        # the output is linear in f, so only the index tables are saved
+        ctx.save_for_backward(chi_idx, rslot, nbr)
+        return fused_contract_1d_forward(chi_idx, nbr, f)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        df = None
+        if ctx.needs_input_grad[2]:
+            df = fused_contract_1d_backward(*ctx.saved_tensors, g)
+        return None, None, df, None
+
+
+class _PromoteContract18(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, chi_idx, nbr, f, deg, row_mask, rslot, compat):
+        ctx.save_for_backward(chi_idx, rslot, nbr, deg, row_mask)
+        ctx.compat = compat
+        return fused_contract_forward(chi_idx, nbr, f, deg, row_mask,
+                                      compat=compat)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        df = None
+        if ctx.needs_input_grad[2]:
+            chi_idx, rslot, nbr, deg, row_mask = ctx.saved_tensors
+            df = fused_contract_backward(chi_idx, rslot, nbr, g, deg,
+                                         row_mask, compat=ctx.compat)
+        return None, None, df, None, None, None, None
+
+
+def promote_contract_1d(chi_idx: torch.Tensor, nbr: torch.Tensor,
+                        f: torch.Tensor, rslot: torch.Tensor) -> torch.Tensor:
+    """Differentiable fused CCN-1D promotion + contraction: K1 forward, K2
+    backward. Equals contract_1d(promote_1d(chi_idx, nbr, f, rslot=rslot))."""
+    return _PromoteContract1D.apply(chi_idx, nbr, f, rslot)
+
+
+def promote_contract_18(chi_idx: torch.Tensor, nbr: torch.Tensor,
+                        f: torch.Tensor, deg: torch.Tensor,
+                        row_mask: torch.Tensor, rslot: torch.Tensor,
+                        compat: bool = False) -> torch.Tensor:
+    """Differentiable fused promotion + 18 contractions: K3 forward, the
+    contract_18_transpose_parts prologue and K4 backward. Equals
+    contract_18(promote_2d(chi_idx, nbr, f, rslot=rslot), deg, row_mask)."""
+    return _PromoteContract18.apply(chi_idx, nbr, f, deg, row_mask, rslot,
+                                    compat)
 
 
 def use_kernel(k_max: int, device: str | torch.device) -> bool:

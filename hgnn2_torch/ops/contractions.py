@@ -1,5 +1,5 @@
-"""CCN promotion and the 18 contractions, plain PyTorch, forward only
-(counterpart of hgnn2_tpu/ops/contractions.py).
+"""CCN promotion and the 18 contractions, plain PyTorch, with their
+closed-form adjoints (counterpart of hgnn2_tpu/ops/contractions.py).
 
 These are the plain versions ("twins") of the fused CUDA kernels in
 ops/ccn_fused.py: the kernels' wrappers run them for CPU tensors, and
@@ -21,7 +21,15 @@ with n = d, bcast masked by row_mask and delta the masked identity. The
 compat layout reproduces the original implementation's duplicated
 channels: [c1..c5, c6, c1 x 9, c16..c18].
 
-The gather-form custom VJPs come with the training slice.
+The promotion's adjoint is itself a gather, not a scatter-add: chi
+matrices are symmetric across an edge, so every (v, k, a, b) that reads
+f[u, p, q] is enumerated from u's side with j = the slot of v in u's list
+and rslot[u, j] = the slot of u in its j-th neighbour's list:
+
+  dL/df[u, p, q] = sum_j g[nbr[u,j], rslot[u,j], chi[u,j,p], chi[u,j,q]]
+
+promote_1d/2d(..., rslot=) use that gather as their backward
+(autograd.Functions), as the JAX package's custom VJPs do.
 """
 
 from __future__ import annotations
@@ -29,10 +37,7 @@ from __future__ import annotations
 import torch
 
 
-def promote_1d(chi_idx: torch.Tensor, nbr: torch.Tensor,
-               f: torch.Tensor) -> torch.Tensor:
-    """T[v,k,a] = f[nbr[v,k], chi_idx[v,k,a]] (0 where chi_idx = -1).
-    f: (V, K, C). Returns (V, K, K, C)."""
+def _promote_1d_gather(chi_idx, nbr, f):
     V, K, C = f.shape
     valid = chi_idx >= 0  # (V, K, K)
     ia = torch.where(valid, chi_idx, 0).long()
@@ -41,10 +46,7 @@ def promote_1d(chi_idx: torch.Tensor, nbr: torch.Tensor,
     return t * valid[..., None].to(f.dtype)
 
 
-def promote_2d(chi_idx: torch.Tensor, nbr: torch.Tensor,
-               f: torch.Tensor) -> torch.Tensor:
-    """T[v,k,a,b] = f[nbr[v,k], chi_idx[v,k,a], chi_idx[v,k,b]] (0 where
-    either index is -1). f: (V, K, K, C). Returns (V, K, K, K, C)."""
+def _promote_2d_gather(chi_idx, nbr, f):
     V, K = f.shape[0], f.shape[1]
     C = f.shape[-1]
     valid = chi_idx >= 0  # (V, K, K)
@@ -54,6 +56,81 @@ def promote_2d(chi_idx: torch.Tensor, nbr: torch.Tensor,
     t = f.reshape(V * K * K, C)[flat]  # (V, K, K, K, C)
     mask = valid[:, :, :, None] & valid[:, :, None, :]
     return t * mask[..., None].to(f.dtype)
+
+
+def promote_1d_bwd(chi_idx: torch.Tensor, rslot: torch.Tensor,
+                   nbr: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Adjoint of promote_1d as a gather: g (V, K, K, C) -> df (V, K, C),
+    df[u,p] = sum_j g[nbr[u,j], rslot[u,j], chi_idx[u,j,p]] over valid
+    (rslot, chi) entries."""
+    V, K = g.shape[0], g.shape[1]
+    C = g.shape[-1]
+    va = chi_idx >= 0  # (V, K, K) [u, j, p]
+    vr = rslot >= 0  # (V, K) [u, j]
+    sa = torch.where(va, chi_idx, 0).long()
+    sr = torch.where(vr, rslot, 0).long()
+    flat = (nbr.long() * K + sr)[:, :, None] * K + sa  # (V, K, K)
+    vals = g.reshape(V * K * K, C)[flat]  # (V, K, K, C)
+    mask = vr[:, :, None] & va
+    return (vals * mask[..., None].to(g.dtype)).sum(dim=1)
+
+
+def promote_2d_bwd(chi_idx: torch.Tensor, rslot: torch.Tensor,
+                   nbr: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Adjoint of promote_2d as a gather: g (V, K, K, K, C) -> df
+    (V, K, K, C), df[u,p,q] = sum_j g[nbr[u,j], rslot[u,j], chi_idx[u,j,p],
+    chi_idx[u,j,q]] over valid entries."""
+    V, K = g.shape[0], g.shape[1]
+    C = g.shape[-1]
+    va = chi_idx >= 0
+    vr = rslot >= 0
+    sa = torch.where(va, chi_idx, 0).long()
+    sr = torch.where(vr, rslot, 0).long()
+    rowp = ((nbr.long() * K + sr)[:, :, None] * K + sa) * K  # [u, j, p]
+    flat = rowp[:, :, :, None] + sa[:, :, None, :]  # [u, j, p, q]
+    vals = g.reshape(V * K * K * K, C)[flat]  # (V, K, K, K, C)
+    mask = vr[:, :, None, None] & va[:, :, :, None] & va[:, :, None, :]
+    return (vals * mask[..., None].to(g.dtype)).sum(dim=1)
+
+
+class _Promote(torch.autograd.Function):
+    """promote_1d/2d with the gather-form backward (no scatter-add)."""
+
+    @staticmethod
+    def forward(ctx, gather, bwd, chi_idx, rslot, nbr, f):
+        ctx.bwd = bwd
+        ctx.save_for_backward(chi_idx, rslot, nbr)
+        return gather(chi_idx, nbr, f)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        df = None
+        if ctx.needs_input_grad[5]:
+            df = ctx.bwd(*ctx.saved_tensors, g)
+        return None, None, None, None, None, df
+
+
+def promote_1d(chi_idx: torch.Tensor, nbr: torch.Tensor, f: torch.Tensor,
+               rslot: torch.Tensor | None = None) -> torch.Tensor:
+    """T[v,k,a] = f[nbr[v,k], chi_idx[v,k,a]] (0 where chi_idx = -1).
+    f: (V, K, C). Returns (V, K, K, C). Passing rslot (CCNBatch.rslot)
+    makes the backward the gather promote_1d_bwd."""
+    if rslot is None:
+        return _promote_1d_gather(chi_idx, nbr, f)
+    return _Promote.apply(_promote_1d_gather, promote_1d_bwd, chi_idx, rslot,
+                          nbr, f)
+
+
+def promote_2d(chi_idx: torch.Tensor, nbr: torch.Tensor, f: torch.Tensor,
+               rslot: torch.Tensor | None = None) -> torch.Tensor:
+    """T[v,k,a,b] = f[nbr[v,k], chi_idx[v,k,a], chi_idx[v,k,b]] (0 where
+    either index is -1). f: (V, K, K, C). Returns (V, K, K, K, C). Passing
+    rslot makes the backward the gather promote_2d_bwd."""
+    if rslot is None:
+        return _promote_2d_gather(chi_idx, nbr, f)
+    return _Promote.apply(_promote_2d_gather, promote_2d_bwd, chi_idx, rslot,
+                          nbr, f)
 
 
 def contract_1d(t: torch.Tensor) -> torch.Tensor:
@@ -107,3 +184,92 @@ def contract_18(t: torch.Tensor, deg: torch.Tensor, row_mask: torch.Tensor,
     chans = ([c1, bcast(sab), n * sk, bcast(skb), diag_embed(tot)] + mid
              + [diag_aa, t_kak, diag_embed(t_xxx)])
     return torch.cat(chans, dim=-1)
+
+
+def contract_1d_transpose(g: torch.Tensor) -> torch.Tensor:
+    """Adjoint of contract_1d: g (V, K, 2C) -> gbar (V, K, K, C) with
+    gbar[v,k,a] = g_row[v,a] + g_col[v,k] (row sums were indexed by a,
+    col sums by k)."""
+    C = g.shape[-1] // 2
+    g_row, g_col = g[..., :C], g[..., C:]
+    return g_row[:, None, :, :] + g_col[:, :, None, :]
+
+
+def contract_18_transpose_parts(g: torch.Tensor, deg: torch.Tensor,
+                                row_mask: torch.Tensor, compat: bool = False):
+    """The adjoint of contract_18 in four per-vertex tensors, each
+    (V, K, K, C), such that
+
+      gbar[v,k,a,b] = d_sk[v,a,b] + d_rb[v,k,a]
+                      + delta_ab * d_diag[v,k,a] + delta_kb * d_kakT[v,k,a]
+
+    O(K^2 C) data per vertex instead of gbar's O(K^3 C): the fused
+    backward kernel reads these four by neighbour index."""
+    K = g.shape[1]
+    C = g.shape[-1] // 18
+    gs = [g[..., i * C:(i + 1) * C] for i in range(18)]
+    n = deg.to(g.dtype)[:, None, None, None]
+    m = row_mask.to(g.dtype)
+
+    def unbcast(gi):  # adjoint of bcast: (V, K, K, C)[i, y] -> (V, K, C)[i]
+        return (gi * m[:, None, :, None]).sum(dim=2)
+
+    def undiag(gi):  # adjoint of diag_embed -> (V, C)
+        return torch.einsum("vyyc->vc", gi * m[:, :, None, None])
+
+    eye = torch.eye(K, dtype=g.dtype, device=g.device)[None, :, :, None]
+    if compat:  # the middle channels were [c6] + [c1] * 9
+        g_c1 = gs[0] + sum(gs[6:15])
+        g_c6 = gs[5]
+    else:
+        g_c1 = gs[0] + gs[6]  # c7 == c1
+        g_c6 = gs[5] + gs[8]  # c9 == c6
+
+    # rb[k,a] = sum_b T[k,a,b] receives n*g_c1, g_c6, c2's sum over y,
+    # c4's (indexed by a), c12's swapped read, and through c5 (tot) and
+    # c14 (sum_k rb[k,k]) the diag_embed channels
+    d_rb = n * g_c1 + g_c6 + unbcast(gs[1])[:, :, None, :]
+    d_rb = d_rb + unbcast(gs[3])[:, None, :, :]
+    if not compat:
+        d_rb = d_rb + gs[11].transpose(1, 2)
+        d_rb = d_rb + eye * undiag(gs[13])[:, None, None, :]
+    d_rb = d_rb + undiag(gs[4])[:, None, None, :]
+
+    # sk[a,b] = sum_k T receives n*g3 (+ g10 + g13)
+    d_sk = n * gs[2]
+    if not compat:
+        d_sk = d_sk + gs[9] + gs[12]
+
+    # diag_aa[k,a] = T[k,a,a] receives c16 (+ bcast c8, diag c15), and
+    # c18 through t_xxx = sum_k diag_aa[k,k]
+    d_diag = gs[15]
+    if not compat:
+        d_diag = d_diag + unbcast(gs[7])[:, :, None, :]
+        d_diag = d_diag + undiag(gs[14])[:, None, None, :]
+    d_diag = d_diag + eye * undiag(gs[17])[:, None, None, :]
+
+    # t_kak[a,k] = T[k,a,k] receives c17 (+ bcast c11 over [a])
+    d_kak = gs[16]
+    if not compat:
+        d_kak = d_kak + unbcast(gs[10])[:, :, None, :]
+
+    return d_sk, d_rb, d_diag, d_kak.transpose(1, 2)
+
+
+def contract_18_transpose(g: torch.Tensor, deg: torch.Tensor,
+                          row_mask: torch.Tensor,
+                          compat: bool = False) -> torch.Tensor:
+    """Adjoint of contract_18: g (V, K, K, 18C) -> gbar (V, K, K, K, C)
+    with <contract_18(t), g> == <t, gbar> for every t (contract_18 is
+    linear in t; deg and row_mask are constants)."""
+    return gbar_from_parts(*contract_18_transpose_parts(
+        g, deg, row_mask, compat=compat))
+
+
+def gbar_from_parts(d_sk, d_rb, d_diag, d_kakT) -> torch.Tensor:
+    """The four parts of contract_18_transpose_parts -> gbar (V, K, K, K, C)."""
+    K = d_sk.shape[1]
+    eye = torch.eye(K, dtype=d_sk.dtype, device=d_sk.device)
+    gbar = d_sk[:, None, :, :, :] + d_rb[:, :, :, None, :]
+    gbar = gbar + eye[None, None, :, :, None] * d_diag[:, :, :, None, :]
+    return gbar + eye[None, :, None, :, None] * d_kakT[:, :, :, None, :]
