@@ -12,7 +12,11 @@ Phases, each of which raises on failure (nothing is caught):
               V = 16,384, K = 5; C = 5 and 2, both channel layouts) and at
               K = 8; hold the gradient through each autograd Function
               against autograd through the plain path; time each kernel
-              beside its bound, and K4's PyTorch prologue apart;
+              beside its bound, and K4's PyTorch prologue apart; hold K5
+              (the ring all-reduce) to its plain twin exactly for S = 2,
+              4 and 8 ranks at the packed path's node blocks
+              (V = 10,944, F = 1, 5, 16), at S = 4 with 2^20 x 16 floats
+              a rank, and on unaligned and odd-sized buffers;
   3. serving  save CCN2D(L=2, h=2) and CCN1D(L=20, h=2) bundles with random
               weights in flax layout (converted by hgnn2_torch.convert),
               load them on the card and predict 2,048 molecules; hold the
@@ -25,7 +29,18 @@ Phases, each of which raises on failure (nothing is caught):
               the launch counts of all four kernels, and the first steps'
               losses and step-0 gradients against the same steps on the
               CPU; time a step and split it into forward, backward and
-              optimizer.
+              optimizer;
+  5. packed   edge-partitioned packed inference: PackedLGGNN(h=8, L=3,
+              J=1, order=2) and PackedGNN(h=1, L=15, J=1), built by
+              cli.common.build_packed_model with seeded flax-layout
+              weights, over 1,024 QM9-shaped molecules in one packed
+              batch split over S = 4 ranks of an EdgeMesh on the card,
+              every all-reduce through K5; a train-mode forward (batch
+              statistics) and an eval forward, held against the card's
+              single-rank ops and the CPU's ring twin; K5 launches per
+              forward; host-clock and device ms per forward and
+              molecules/s for the ring, the plain reduce and single-rank
+              ops.
 
 The last two lines are a JSON line describing each kernel and
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
@@ -70,6 +85,8 @@ N_SERVE_MOLS = 1024
 N_REQUESTS = 2048
 V_SERVE = 16384  # the CCN loader's vertex bucket for 10,964 vertices
 SERVE_BUCKETS = [(1024, 16384), (256, 4096)]
+N_PACKED_MOLS = 1024  # bench_scaling.py's --molecules default
+RING_RANKS = 4
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                        "chip_smoke")
 
@@ -77,7 +94,8 @@ OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
 BUSY_CYCLES = 20_000_000  # about 10 ms of device spin at the H100's clock
 
 
-def _time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
+def _time_ms(fn, reps: int = 30, warmup: int = 3,
+             busy: int = BUSY_CYCLES) -> float:
     """Median device time of one call, by CUDA events, after warm-up.
 
     Before each call the device spins (torch.cuda._sleep) while the host
@@ -92,7 +110,7 @@ def _time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(BUSY_CYCLES)
+        torch.cuda._sleep(busy)
         start.record()
         fn()
         end.record()
@@ -132,7 +150,10 @@ def _ptxas_summary(log: str) -> list[str]:
         m = re.search(r"entry function '(\S+)'", line)
         if m:
             k = re.search(r"(ccn[12]d_(?:for|back)ward)ILi(\d+)E", m.group(1))
-            name = f"{k.group(1)}<K={k.group(2)}>" if k else m.group(1)
+            h = re.search(r"ring_hopILb(\d)ELb(\d)E", m.group(1))
+            name = (f"{k.group(1)}<K={k.group(2)}>" if k else
+                    f"ring_hop<first={h.group(1)},vec={h.group(2)}>" if h
+                    else m.group(1))
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
             spill = m.group(1)
@@ -171,18 +192,19 @@ def _grad_check(name: str, got: torch.Tensor, want: torch.Tensor) -> None:
         raise AssertionError(f"{name}: gradient through the kernels disagrees")
 
 
-def _expect_refusal(name: str, call) -> None:
+def _expect_refusal(name: str, call, msg: str = "no autograd graph") -> None:
     """A raw forward wrapper returns a tensor with no autograd graph, so in
     grad mode it must refuse an f that requires grad (a model calling it
-    there would train each layer on its own readout alone)."""
+    there would train each layer on its own readout alone). The ring has
+    no gradient at all, and refuses likewise."""
     try:
         call()
     except RuntimeError as e:
-        if "no autograd graph" not in str(e):
+        if msg not in str(e):
             raise
-        print(f"  {name} refuses an f that requires grad in grad mode: ok")
+        print(f"  {name} refuses an input that requires grad in grad mode: ok")
         return
-    raise AssertionError(f"{name} accepted an f that requires grad")
+    raise AssertionError(f"{name} accepted an input that requires grad")
 
 
 def _f_grad(fn, f: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -329,6 +351,68 @@ def phase_kernels(dev) -> dict[str, dict]:
     return rows
 
 
+def phase_ring(dev, V: int) -> dict:
+    """K5 against its plain twin (equal bit for bit: the same adds in the
+    same order) at the packed path's node blocks (V, F), F = 1 (degree),
+    5 (input features) and 16 (the LGGNN's 2h), for S = 2, 4, 8; at
+    S = 4 with 2^20 x 16 floats a rank; and on an odd-sized unaligned
+    view (the scalar path). Times it at S = 4. Returns K5's row, timed
+    at F = 16, the width of most of the path's all-reduces."""
+    from hgnn2_torch.ops import ring
+
+    rng = np.random.default_rng(5)
+    parts_of = lambda S, shape: [torch.from_numpy(
+        rng.standard_normal(shape, dtype=np.float32)).to(dev) for _ in range(S)]
+    row = dict(name="ring_psum", route="cuda",
+               source="hgnn2_torch/ops/csrc/ring.cu",
+               replaces="hgnn2_tpu/ops/pallas/ring.py:27", max_abs_err=0.0,
+               library_ms=None)
+    x = parts_of(2, (V, 16))
+    _expect_refusal("ring_psum", lambda: ring.ring_psum(
+        [x[0].requires_grad_(), x[1]]), msg="no gradient")
+
+    def exact(label, parts):
+        got = ring.ring_psum(parts)
+        want = ring.ring_psum_reference(parts)
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        ok = err == 0.0 and all(bool(torch.isfinite(g).all()) for g in got)
+        print(f"  K5 {label}: max_abs_err={err:.3e} over {len(parts)} ranks "
+              f"(tolerance 0: same adds, same order) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K5 {label}: kernel disagrees with its twin")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+
+    for S in (2, 4, 8):
+        for F in (1, 5, 16):
+            exact(f"S={S} V={V} F={F}", parts_of(S, (V, F)))
+    exact("S=4 n=2^20 x 16", parts_of(4, (2 ** 20, 16)))
+    exact("S=3 odd unaligned view (scalar path)",
+          [p[1:] for p in parts_of(3, (3004,))])
+    exact("S=5 (1001, 3)", parts_of(5, (1001, 3)))
+
+    S = 4
+    for label, shape in ((f"V={V} F=1", (V, 1)), (f"V={V} F=5", (V, 5)),
+                         (f"V={V} F=16", (V, 16)), ("n=2^20 x 16", (2 ** 20, 16))):
+        parts = parts_of(S, shape)
+        n = parts[0].numel()
+        bound, by = _bound(2 * S * n * 4, S * (S - 1) * n)
+        t = dict(ms=_time_ms(lambda: ring.ring_psum(parts)),
+                 plain_ms=_time_ms(lambda: ring.ring_psum_reference(parts)),
+                 library_ms=_time_ms(lambda: torch.stack(parts).sum(0)),
+                 bound_ms=bound, bound_by=by)
+        schedule_ms = 16 * n * S * (S - 1) / HBM_BYTES_PER_S * 1e3
+        print(f"  K5 ring_psum S={S} {label}: kernel {t['ms']:.4f} ms "
+              f"({S - 1} launches), plain twin {t['plain_ms']:.4f} ms, "
+              f"bound {bound:.5f} ms ({by}: 2*S*n*4 bytes, the function's "
+              f"minimum), schedule's bytes {schedule_ms:.5f} ms "
+              f"(16*n*S*(S-1)), library torch.stack(parts).sum(0) "
+              f"{t['library_ms']:.4f} ms (computes one replica, not S)")
+        if label.endswith("F=16"):
+            row.update(t)
+    return row
+
+
 def _flax_params(n_features: int, hidden: int, n_layers: int,
                  n_channels: int, seed: int) -> dict:
     """Random weights in the JAX models' flax layout: kernel (in, out)."""
@@ -371,12 +455,13 @@ def _breakdown(sm, chunk) -> None:
 
 
 def _counters() -> dict:
-    from hgnn2_torch.ops import ccn_fused
+    from hgnn2_torch.ops import ccn_fused, ring
 
     return {"K1": ccn_fused.fused_contract_1d_forward,
             "K2": ccn_fused.fused_contract_1d_backward,
             "K3": ccn_fused.fused_contract_forward,
-            "K4": ccn_fused.fused_contract_backward}
+            "K4": ccn_fused.fused_contract_backward,
+            "K5": ring.ring_psum}
 
 
 def phase_serving(dev, card: str) -> dict[str, int]:
@@ -603,6 +688,155 @@ def phase_training(card: str) -> dict[str, int]:
     return launches
 
 
+def _packed_caps(records) -> tuple[int, int]:
+    """Node and edge capacities rounded up to multiples of 64, as
+    bench_scaling.py packs its 1,024 molecules."""
+    tot_v = sum(r.n_nodes for r in records)
+    tot_e = sum(r.n_dir_edges for r in records)
+    return -(-tot_v // 64) * 64, -(-tot_e // 64) * 64
+
+
+def _packed_flax_variables(model, seed: int) -> dict:
+    """Seeded weights in the flax layout of a packed model: every kernel,
+    bias and BN scale N(0, 0.1); batch stats at flax's init (mean 0,
+    std 1)."""
+    from hgnn2_torch import convert
+
+    rng = np.random.default_rng(seed)
+    tree = convert.packed_variables_to_flax(model.state_dict())
+    params = {name: {f: rng.normal(0, 0.1, a.shape).astype(np.float32)
+                     for f, a in leaves.items()}
+              for name, leaves in tree["params"].items()}
+    return {"params": params, "batch_stats": tree["batch_stats"]}
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / max |want|."""
+    got, want = got.detach().cpu(), want.detach().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def phase_packed(dev, card: str, records) -> dict[str, int]:
+    """Edge-partitioned packed inference of both configurations at
+    S = RING_RANKS. Returns each kernel's launches over the main paths'
+    runs (one eval forward of each model through the ring)."""
+    from hgnn2_torch import convert, graphs
+    from hgnn2_torch.cli import common
+    from hgnn2_torch.nn import packed
+    from hgnn2_torch.parallel import spmd
+    from hgnn2_torch.training.config import TrainConfig
+
+    S = RING_RANKS
+    V, C = _packed_caps(records)
+    t0 = time.perf_counter()
+    pb = graphs.make_packed_batch(records, node_capacity=V, edge_capacity=C,
+                                  task=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"  {len(records)} molecules packed: V={V} node slots, C={C} edge "
+          f"slots ({C // S} a rank), batch build + copy "
+          f"{(time.perf_counter() - t0) * 1e3:.2f} ms (host clock)")
+    pb_cpu = pb.to("cpu")
+    mesh, cpu_mesh = spmd.EdgeMesh([dev] * S), spmd.EdgeMesh(["cpu"] * S)
+    counters = _counters()
+    launches = dict.fromkeys(counters, 0)
+    for name, arch, h, n_layers, order, n_allreduce, seed in (
+            ("PackedLGGNN", "lggnn", 8, 3, 2, 18, 5),
+            ("PackedGNN", "gnn", 1, 15, 1, 16, 6)):
+        cfg = TrainConfig(seed=seed, device="cuda")
+        cfg.model.arch, cfg.model.n_features = arch, h
+        cfg.model.n_layers, cfg.model.J, cfg.model.order = n_layers, 1, order
+        J = cfg.model.J
+        F_in = records[0].x.shape[1]
+        state0 = convert.packed_variables_from_flax(_packed_flax_variables(
+            common.build_packed_model(cfg, "regression", F_in), seed))
+
+        def model_on(device, state):
+            m = common.build_packed_model(cfg, "regression", F_in)
+            m.load_state_dict(state)
+            return m.to(device)
+
+        ring_ops = lambda: spmd.partitioned_packed_ops(mesh, pb, J, use_ring=True)
+        plain_ops = lambda: spmd.partitioned_packed_ops(mesh, pb, J)
+        single_ops = lambda: packed.SparsePackedOps(pb, J)
+        cpu_ops = lambda: spmd.partitioned_packed_ops(cpu_mesh, pb_cpu, J,
+                                                      use_ring=True)
+        label = f"{name}(h={h}, L={n_layers}, J={J}{f', order={order}' if arch == 'lggnn' else ''})"
+
+        # train-mode forward: batch statistics, running stats updated
+        runs = {}
+        with torch.no_grad():
+            for key, device, batch, make_ops in (
+                    ("ring", dev, pb, ring_ops), ("single", dev, pb, single_ops),
+                    ("cpu", "cpu", pb_cpu, cpu_ops)):
+                m = model_on(device, state0).train()
+                out = m(batch, ops=make_ops())
+                runs[key] = (out.cpu(), {k: v.cpu() for k, v in m.state_dict().items()})
+        stat_keys = [k for k in state0 if k.endswith((".mean", ".std"))]
+        for other in ("single", "cpu"):
+            pred_err = _rel_err(runs["ring"][0], runs[other][0])
+            stat_err = max(_rel_err(runs["ring"][1][k], runs[other][1][k])
+                           for k in stat_keys)
+            print(f"  {label} train-mode forward, card ring S={S} vs "
+                  f"{'card single-rank ops' if other == 'single' else f'CPU ring twin S={S}'}: "
+                  f"max err / max |pred| {pred_err:.3e}, updated BN stats max "
+                  f"err / max |stat| {stat_err:.3e} over {len(stat_keys)} "
+                  f"tensors (tolerance {SERVE_RTOL})")
+            if pred_err > SERVE_RTOL or stat_err > SERVE_RTOL:
+                raise AssertionError(f"{label}: train-mode forwards disagree")
+        state1 = runs["ring"][1]
+
+        # the main path: one eval forward through the ring
+        model = model_on(dev, state1).eval()
+        with torch.no_grad():
+            model(pb, ops=ring_ops())  # first calls: cuBLAS, allocator
+            for c in counters.values():
+                c.launches = 0
+            torch.cuda.synchronize()
+            ops = ring_ops()
+            preds = model(pb, ops=ops)
+            torch.cuda.synchronize()
+            got = {k: c.launches for k, c in counters.items()}
+            for k, n in got.items():
+                launches[k] += n
+            want = dict.fromkeys(counters, 0)
+            want["K5"] = n_allreduce * (S - 1)
+            n_ar = ops.comm_bytes_per_step()["n_allreduce_fwd"]
+            print(f"  {label} eval forward over {len(records)} molecules, "
+                  f"ring S={S}: {n_ar} all-reduces, launches {got} "
+                  f"(expected {want})")
+            if got != want or n_ar != n_allreduce:
+                raise AssertionError(f"{label}: launches {got} != {want}")
+            if preds.shape != (len(records), 1) or not torch.isfinite(preds).all():
+                raise AssertionError(f"{label}: predictions not finite or misshapen")
+            single = model(pb, ops=single_ops())
+            cpu = model_on("cpu", state1).eval()(pb_cpu, ops=cpu_ops())
+            for other, ref in (("card single-rank ops", single),
+                               (f"CPU ring twin S={S}", cpu)):
+                err = _rel_err(preds, ref)
+                print(f"  {label} eval, card ring vs {other}: max err / max "
+                      f"|pred| {err:.3e} (tolerance {SERVE_RTOL})")
+                if err > SERVE_RTOL:
+                    raise AssertionError(f"{label}: eval predictions disagree")
+
+            for key, make_ops in (("ring", ring_ops), ("plain reduce", plain_ops),
+                                  ("single-rank ops", single_ops)):
+                fwd = lambda: model(pb, ops=make_ops())
+                fwd()
+                torch.cuda.synchronize()
+                reps = 20
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fwd()
+                torch.cuda.synchronize()
+                host_ms = (time.perf_counter() - t0) / reps * 1e3
+                dev_ms = _time_ms(fwd, reps=10, warmup=1, busy=10 * BUSY_CYCLES)
+                print(f"  {label} eval forward ({key}{f', S={S}' if key != 'single-rank ops' else ''}"
+                      f", operator bundle built in the forward): {host_ms:.3f} ms "
+                      f"host clock, {dev_ms:.3f} ms device (CUDA events), "
+                      f"{len(records) / host_ms * 1e3:.1f} molecules/s on {card}")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -627,8 +861,12 @@ def main() -> None:
         for line in _ptxas_summary(cuda_build.build_log(name)):
             print("  ptxas:", line)
 
+    from hgnn2_torch.data import qm9
+
+    packed_records = qm9.synthetic_qm9_like(N_PACKED_MOLS, seed=1)
     print("phase 2: kernels against their plain versions")
     rows = phase_kernels(dev)
+    rows["K5"] = phase_ring(dev, _packed_caps(packed_records)[0])
 
     print("phase 3: serving")
     shutil.rmtree(OUT_DIR, ignore_errors=True)
@@ -636,8 +874,11 @@ def main() -> None:
 
     print("phase 4: training")
     trained = phase_training(card)
-    for key, row in rows.items():  # launches of both main paths' runs
-        row["launches"] = served[key] + trained[key]
+
+    print("phase 5: edge-partitioned packed inference")
+    packed = phase_packed(dev, card, packed_records)
+    for key, row in rows.items():  # launches of the main paths' runs
+        row["launches"] = served[key] + trained[key] + packed[key]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}

@@ -1,7 +1,8 @@
 """Shared experiment runner behind the CLI entry points (counterpart of
 hgnn2_tpu/cli/common.py).
 
-So far it runs the CCN models on the synthetic QM9-shaped molecules. The
+So far it trains the CCN models on the synthetic QM9-shaped molecules,
+and builds the packed GNNs for inference (build_packed_model). The
 flags of later slices (--ckpt, --resume, --dp, --edge_shards, --packed,
 --bn_recalib, --gru, --J, --compat_reference, --data_path) are not
 accepted; config fields of those slices raise in run_experiment or fit.
@@ -19,6 +20,8 @@ import torch
 from hgnn2_torch import convert, resolve_device
 from hgnn2_torch.data import batching, qm9, stats, synthetic
 from hgnn2_torch.nn import ccn as ccn_mod
+from hgnn2_torch.nn import packed as packed_mod
+from hgnn2_torch.nn.layers import CompatConfig
 from hgnn2_torch.ops import ccn_fused
 from hgnn2_torch.training import metrics as metrics_lib
 from hgnn2_torch.training import train as train_lib
@@ -68,6 +71,24 @@ def build_model(cfg: TrainConfig, kind: str, n_features: int):
             raise NotImplementedError("ccn2d vertex_chunks is not ported")
         return ccn_mod.CCN2D(compat_contractions=m.compat_contractions, **kw)
     raise NotImplementedError(f"arch {m.arch!r} comes with a later slice")
+
+
+def build_packed_model(cfg: TrainConfig, kind: str, n_features: int):
+    """The packed segment-sum twin of cfg.model (gnn or lggnn) for inputs
+    of n_features channels, its weights drawn from cfg.seed. Run it over
+    a PackedGraphBatch, on one device or with an edge-partitioned operator
+    bundle (parallel.spmd.partitioned_packed_ops)."""
+    m = cfg.model
+    dim_output = 2 if kind == "classification" else m.dim_output
+    compat = CompatConfig.reference() if m.compat_reference else CompatConfig()
+    kw = dict(n_features=m.n_features, n_layers=m.n_layers,
+              in_features=n_features, dim_output=dim_output, J=m.J,
+              compat=compat, generator=torch.Generator().manual_seed(cfg.seed))
+    if m.arch == "lggnn":
+        return packed_mod.PackedLGGNN(order=m.order, **kw)
+    if m.arch == "gnn":
+        return packed_mod.PackedGNN(**kw)
+    raise ValueError(f"no packed variant for arch {m.arch!r}")
 
 
 def run_experiment(cfg: TrainConfig, init_params=None):

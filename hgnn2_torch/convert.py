@@ -43,3 +43,40 @@ def ccn_params_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, dict
         else:
             raise ValueError(f"unexpected state_dict entry {key!r}")
     return params
+
+
+def packed_variables_from_flax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """PackedLGGNN/PackedGNN flax variables -> the port model's state_dict.
+
+    ``variables`` holds "params" (each Dense's ``kernel`` (in, out) and
+    ``bias``; each MaskedBatchNorm's ``scale`` and ``bias``, 0-d under
+    scalar_affine_bn) and "batch_stats" (each BN's running ``mean`` and
+    ``std``). Module names are the same in both packages."""
+    state = {}
+    for name, leaves in variables["params"].items():
+        for field, arr in leaves.items():
+            arr = np.asarray(arr, dtype=np.float32)
+            if field == "kernel":
+                field, arr = "weight", arr.T
+            state[f"{name}.{field}"] = torch.from_numpy(arr.copy())
+    for name, leaves in variables.get("batch_stats", {}).items():
+        for field, arr in leaves.items():
+            state[f"{name}.{field}"] = torch.from_numpy(
+                np.asarray(arr, dtype=np.float32).copy())
+    return state
+
+
+def packed_variables_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, dict]:
+    """The inverse of packed_variables_from_flax: {"params": ...,
+    "batch_stats": ...} of float32 numpy arrays in the flax layout."""
+    out: dict[str, dict] = {"params": {}, "batch_stats": {}}
+    for key, t in state_dict.items():
+        name, field = key.rsplit(".", 1)
+        arr = t.detach().cpu().numpy().astype(np.float32)
+        if field == "weight":
+            field, arr = "kernel", arr.T
+        elif field not in ("bias", "scale", "mean", "std"):
+            raise ValueError(f"unexpected state_dict entry {key!r}")
+        tree = "batch_stats" if field in ("mean", "std") else "params"
+        out[tree].setdefault(name, {})[field] = arr.copy()
+    return out
