@@ -10,13 +10,15 @@ Phases, each of which raises on failure (nothing is caught):
               kernels K2 and K4 against their plain PyTorch versions on
               the card, at the serving bucket (1,024 QM9-shaped molecules,
               V = 16,384, K = 5; C = 5 and 2, both channel layouts) and at
-              K = 8; hold the gradient through each autograd Function
-              against autograd through the plain path; time each kernel
-              beside its bound, and K4's PyTorch prologue apart; hold K5
-              (the ring all-reduce) to its plain twin exactly for S = 2,
-              4 and 8 ranks at the packed path's node blocks
-              (V = 10,944, F = 1, 5, 16), at S = 4 with 2^20 x 16 floats
-              a rank, and on unaligned and odd-sized buffers;
+              K = 8, and K3 also on a batch whose vertex count is no
+              multiple of its tile and at C = 256 on the K = 8 batch
+              (channel tiles); hold the gradient through each autograd
+              Function against autograd through the plain path; time
+              each kernel beside its bound, and K4's PyTorch prologue
+              apart; hold K5 (the ring all-reduce) to its plain twin
+              exactly for S = 2, 4 and 8 ranks at the packed path's node
+              blocks (V = 10,944, F = 1, 5, 16), at S = 4 with 2^20 x 16
+              floats a rank, and on unaligned and odd-sized buffers;
   3. serving  save CCN2D(L=2, h=2) and CCN1D(L=20, h=2) bundles with random
               weights in flax layout (converted by hgnn2_torch.convert),
               load them on the card and predict 2,048 molecules; hold the
@@ -38,9 +40,9 @@ Phases, each of which raises on failure (nothing is caught):
               every all-reduce through K5; a train-mode forward (batch
               statistics) and an eval forward, held against the card's
               single-rank ops and the CPU's ring twin; K5 launches per
-              forward; host-clock and device ms per forward and
-              molecules/s for the ring, the plain reduce and single-rank
-              ops.
+              forward (one an all-reduce); host-clock and device ms per
+              forward and molecules/s for the ring, the plain reduce and
+              single-rank ops.
 
 The last two lines are a JSON line describing each kernel and
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
@@ -150,9 +152,9 @@ def _ptxas_summary(log: str) -> list[str]:
         m = re.search(r"entry function '(\S+)'", line)
         if m:
             k = re.search(r"(ccn[12]d_(?:for|back)ward)ILi(\d+)E", m.group(1))
-            h = re.search(r"ring_hopILb(\d)ELb(\d)E", m.group(1))
+            h = re.search(r"ring_allreduceILi(\d+)ELb(\d)E", m.group(1))
             name = (f"{k.group(1)}<K={k.group(2)}>" if k else
-                    f"ring_hop<first={h.group(1)},vec={h.group(2)}>" if h
+                    f"ring_allreduce<S={h.group(1)},vec={h.group(2)}>" if h
                     else m.group(1))
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
@@ -338,9 +340,30 @@ def phase_kernels(dev) -> dict[str, dict]:
                     # the prologue reads g and writes the four parts
                     bound, by = _bound(_nbytes(g2, b.deg, m, *parts), 0)
                     prologue[C] = dict(ms=_time_ms(pro), bound_ms=bound)
+    # K3's tiles at their edges: a vertex count that is no multiple of
+    # the tile (the exact vertex count of 100 molecules), and C = 256 on
+    # the K = 8 batch, which splits the channels over blocks
+    ragged = qm9.synthetic_qm9_like(100, seed=2)
+    cbr = ccn.make_ccn_batch(ragged, k_max=5, task=0, device=dev,
+                             vertex_capacity=sum(r.n_nodes for r in ragged))
+    for label, b, C in ((f"ragged V={cbr.nbr.shape[0]} K=5", cbr, 5),
+                        (f"K=8 graphs V={cb8.nbr.shape[0]} K=8 wide", cb8, 256)):
+        K = b.nbr.shape[1]
+        vt, ct, smem = ccn_fused._k3_tile(K, C)
+        f2 = (randn(b.nbr.shape[0], K, K, C)
+              * (b.row_mask[:, :, None] * b.row_mask[:, None, :])[..., None]).contiguous()
+        for compat in (False, True):
+            check("K3", f"{label} C={C} compat={compat} (tile Vt={vt} Ct={ct}, "
+                  f"{smem} B shared)",
+                  ccn_fused.fused_contract_forward(b.chi_idx, b.nbr, f2, b.deg,
+                                                   b.row_mask, compat=compat),
+                  P.contract_18(P.promote_2d(b.chi_idx, b.nbr, f2), b.deg,
+                                b.row_mask, compat=compat))
     for (key, C), t in sorted(timed.items()):
+        tile = (" (tile Vt={} Ct={}, {} B shared)".format(*ccn_fused._k3_tile(5, C))
+                if key == "K3" else "")
         print(f"  {key} {rows[key]['name']} at V={V_SERVE} K=5 C={C}: "
-              f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"kernel {t['ms']:.4f} ms{tile}, plain {t['plain_ms']:.4f} ms, "
               f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), library none")
     for C, t in sorted(prologue.items()):
         print(f"  K4 prologue contract_18_transpose_parts (PyTorch ops) at "
@@ -353,7 +376,7 @@ def phase_kernels(dev) -> dict[str, dict]:
 
 def phase_ring(dev, V: int) -> dict:
     """K5 against its plain twin (equal bit for bit: the same adds in the
-    same order) at the packed path's node blocks (V, F), F = 1 (degree),
+    same order, one launch against the twin's S - 1 hops) at the packed path's node blocks (V, F), F = 1 (degree),
     5 (input features) and 16 (the LGGNN's 2h), for S = 2, 4, 8; at
     S = 4 with 2^20 x 16 floats a rank; and on an odd-sized unaligned
     view (the scalar path). Times it at S = 4. Returns K5's row, timed
@@ -401,13 +424,12 @@ def phase_ring(dev, V: int) -> dict:
                  plain_ms=_time_ms(lambda: ring.ring_psum_reference(parts)),
                  library_ms=_time_ms(lambda: torch.stack(parts).sum(0)),
                  bound_ms=bound, bound_by=by)
-        schedule_ms = 16 * n * S * (S - 1) / HBM_BYTES_PER_S * 1e3
         print(f"  K5 ring_psum S={S} {label}: kernel {t['ms']:.4f} ms "
-              f"({S - 1} launches), plain twin {t['plain_ms']:.4f} ms, "
-              f"bound {bound:.5f} ms ({by}: 2*S*n*4 bytes, the function's "
-              f"minimum), schedule's bytes {schedule_ms:.5f} ms "
-              f"(16*n*S*(S-1)), library torch.stack(parts).sum(0) "
-              f"{t['library_ms']:.4f} ms (computes one replica, not S)")
+              f"(1 launch, {2 * S * n * 4} bytes: 2*S*n*4, each input read "
+              f"once, each output written once), plain twin "
+              f"{t['plain_ms']:.4f} ms, bound {bound:.5f} ms ({by}), library "
+              f"torch.stack(parts).sum(0) {t['library_ms']:.4f} ms (computes "
+              f"one replica, not S)")
         if label.endswith("F=16"):
             row.update(t)
     return row
@@ -799,7 +821,7 @@ def phase_packed(dev, card: str, records) -> dict[str, int]:
             for k, n in got.items():
                 launches[k] += n
             want = dict.fromkeys(counters, 0)
-            want["K5"] = n_allreduce * (S - 1)
+            want["K5"] = n_allreduce  # one launch an all-reduce
             n_ar = ops.comm_bytes_per_step()["n_allreduce_fwd"]
             print(f"  {label} eval forward over {len(records)} molecules, "
                   f"ring S={S}: {n_ar} all-reduces, launches {got} "

@@ -35,10 +35,18 @@ from hgnn2_torch.ops import contractions, cuda_build
 
 MAX_K = 8
 
+# K3's tiles (csrc/ccn_fused.cu, ccn2d_forward): shared memory a block may
+# take (4 blocks of 256 threads fit an H100 SM), and the most vertices a
+# tile holds.
+K3_SMEM_BYTES = 48 * 1024
+K3_MAX_VT = 32
+K3_CHANNELS = 18
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "hgnn2_ccn1d_forward": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "hgnn2_ccn2d_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "hgnn2_ccn2d_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _P],
     "hgnn2_ccn1d_backward": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "hgnn2_ccn2d_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
@@ -50,6 +58,34 @@ def _kernel(name: str):
     fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _k3_smem(K: int, vt: int, ct: int) -> int:
+    """Bytes of shared memory of a K3 block of vt vertices and ct
+    channels. Per vertex: its staged output (18 K^2 ct floats), its
+    4K^2 + 4K + 4 reductions per channel, and its tables (chi, nbr,
+    row_mask, deg)."""
+    per_channel = K3_CHANNELS * K * K + 4 * K * K + 4 * K + 4
+    return 4 * vt * (per_channel * ct + K * K + 2 * K + 1)
+
+
+def _k3_tile(K: int, C: int) -> tuple[int, int, int]:
+    """K3's tile (Vt vertices, Ct channels) and its shared-memory bytes.
+
+    Ct = C with the largest even Vt <= K3_MAX_VT that fits
+    K3_SMEM_BYTES: a vertex's output is 18 K^2 C floats, an even count,
+    so with Vt even every tile starts 16-byte aligned and its output is
+    one contiguous run. Where not even two vertices fit, one vertex a
+    block and the channels split into tiles of at most half of C. The
+    staged output fits shared memory, so a tile holds under 2^16 floats
+    (the kernel's index range)."""
+    fits = [vt for vt in range(2, K3_MAX_VT + 1, 2)
+            if _k3_smem(K, vt, C) <= K3_SMEM_BYTES]
+    if fits:
+        return fits[-1], C, _k3_smem(K, fits[-1], C)
+    per_channel = _k3_smem(K, 1, 1) - _k3_smem(K, 1, 0)
+    ct = min(-(-C // 2), (K3_SMEM_BYTES - _k3_smem(K, 1, 0)) // per_channel)
+    return 1, ct, _k3_smem(K, 1, ct)
 
 
 def _check(f: torch.Tensor, n_k_axes: int, **tensors) -> None:
@@ -160,7 +196,7 @@ def fused_contract_forward(chi_idx: torch.Tensor, nbr: torch.Tensor,
     out = torch.empty((V, K, K, 18 * C), dtype=torch.float32, device=f.device)
     _launch("hgnn2_ccn2d_forward", f, chi_idx.data_ptr(), nbr.data_ptr(),
             f.data_ptr(), deg.data_ptr(), row_mask.data_ptr(), out.data_ptr(),
-            V, K, C, int(compat))
+            V, K, C, int(compat), *_k3_tile(K, C))
     fused_contract_forward.launches += 1
     return out
 

@@ -35,23 +35,49 @@
 //   The backward kernels' gathers hit the same rows as the forward's
 //   (graphs are contiguous in the vertex axis), so they read mostly L2.
 //
-// Design: every vertex is independent, so one thread owns one (vertex,
-// channel) pair, t = v*C + c, and there is no cross-thread reduction.
-// Neighbouring threads read neighbouring channels of the same gathered
-// row of f and write neighbouring channels of the same output row. The
-// neighbour rows are read straight from f by index (graphs are small and
-// contiguous in the vertex axis, so the reads mostly hit L2); no halo
-// window and no graph-size limit. An index of -1 contributes an exact 0
-// and f is never read at it. K is a template parameter (1..8) so every
-// loop over K unrolls and the per-vertex partial sums live in registers.
-// K3 keeps four K x K accumulators (sk, rb, diag, colk): 100 floats at
-// K = 5, 256 at K = 8, where they spill to local memory. That is accepted
-// in this first version; the output write still dominates. K2 keeps K
+// K1, K2, K4: every vertex is independent, so one thread owns one
+// (vertex, channel) pair, t = v*C + c, and there is no cross-thread
+// reduction. Neighbouring threads read neighbouring channels of the same
+// gathered row and write neighbouring channels of the same output row.
+// Neighbour rows are read straight from their input by index (graphs are
+// small and contiguous in the vertex axis, so the reads mostly hit L2);
+// no halo window and no graph-size limit. An index of -1 (or any index
+// out of range) contributes an exact 0 and is never read at. K is a
+// template parameter (1..8) so every loop over K unrolls. K2 keeps K
 // and K4 K x K accumulators (25 floats at K = 5, 64 at K = 8); both loop
 // over the K slots j of u, load n, r and u's chi row once per slot, and
 // skip a slot whose n or r is out of range, so a padding slot costs no
 // read of g. In K4 the d_rb term does not depend on q, so an invalid q is
 // gated explicitly like an invalid p (the Pallas kernel's qv).
+//
+// K3: a block owns a tile of Vt vertices and Ct channels (Ct = C unless
+// the tile would not fit shared memory; the wrapper's _k3_tile picks
+// both and the shared-memory size, so there is no limit on C or on V).
+// Its output is what bounds it, so the design is about the stores:
+//   A. reductions: one thread per (vertex, row a, channel) reads
+//      f[nbr[v,k], chi[v,k,a], chi[v,k,b], c] over k and b (all K^2
+//      loads independent, so they overlap) and writes the 4K values of
+//      its row -- sum_k T_k[a, b] (as [b][a]) and, per k, sum_b T_k[a, b],
+//      T_k[a, a] and T_k[a, k] -- to shared memory, laid out
+//      [v][part][K][a][c] so that neighbouring threads hit neighbouring
+//      banks. K accumulators a thread, not 4 K^2: no spills at any K.
+//   B. per-vertex sums over those: sab, skb, tr_ab, c11 (K each) and
+//      tot, sum_kkb, tr_sum, t_xxx, into shared memory.
+//   C1. one thread per (vertex, i, j, channel) forms the 18 channels
+//      as contract_18 does, compat included, and stages them in shared
+//      memory in the output's own layout.
+//   C2. with Ct = C the staged tile is one contiguous run of
+//      Vt*K*K*18*C floats in device memory too: threads copy it out in
+//      16-byte stores with a streaming hint (the output cannot stay in
+//      the 50 MB L2), consecutive lanes on consecutive addresses, so a
+//      warp writes 512 contiguous bytes an instruction. Vt is even, so
+//      every tile starts 16-byte aligned; a ragged end, a channel tile
+//      (Ct < C: runs of Ct floats) or a misaligned start copy floats.
+//      (A TMA bulk copy of the staged tile by one thread, and stores
+//      without the streaming hint, were both slower on the H100.)
+// __syncthreads() separates the table loads and the phases; each phase
+// is a loop over its items with the block's stride, so no phase depends
+// on the block size.
 //
 // The entry points have a plain C interface (loaded with ctypes). They
 // launch on the given stream, allocate nothing, and return
@@ -104,116 +130,207 @@ ccn1d_forward(const int* __restrict__ chi, const int* __restrict__ nbr,
   for (int a = 0; a < K; ++a) out_v[a * 2 * C] = row[a];
 }
 
+// ---- K3 ----
+
+constexpr int kK3Threads = 256;
+constexpr int kChannels = 18;  // contract_18's channel blocks
+
+// Shared memory of a K3 block, in 4-byte words per vertex: the staged
+// output, 18 K^2 channels; the reductions, four K x K parts -- [0] sk
+// as [b][a], [1] rb[k][a], [2] diag[k][a], [3] colk[k][a] -- then four
+// K-vectors (sab, skb, tr_ab, c11) indexed by i, then four scalars (tot,
+// sum_kkb, tr_sum, t_xxx), all times the tile's channels; and the
+// tables: chi (K x K), nbr, row_mask (K each) and deg.
 template <int K>
-__global__ void __launch_bounds__(kThreads)
+struct K3Slots {
+  static constexpr int kPart = K * K;
+  static constexpr int kRow = 4 * K * K;
+  static constexpr int kScalar = 4 * K * K + 4 * K;
+  static constexpr int kCount = 4 * K * K + 4 * K + 4;
+  static constexpr int kTable = K * K + 2 * K + 1;
+  // words of a vertex at ct channels
+  static constexpr long long words(int ct) {
+    return (long long)(kChannels * K * K + kCount) * ct + kTable;
+  }
+};
+
+// Unsigned division by a block-uniform d, exact for e * d < 2^32 (a
+// tile's output fits shared memory, so every index and divisor here is
+// below 2^16): e / d == umulhi(e, ceil(2^32 / d)), d == 1 passed through.
+struct FastDiv {
+  unsigned d, m;
+  __device__ explicit FastDiv(unsigned d_)
+      : d(d_), m(d_ > 1 ? 0xFFFFFFFFu / d_ + 1u : 0u) {}
+  __device__ __forceinline__ unsigned div(unsigned e) const {
+    return d > 1 ? __umulhi(e, m) : e;
+  }
+};
+
+template <int K>
+__global__ void __launch_bounds__(kK3Threads)
 ccn2d_forward(const int* __restrict__ chi, const int* __restrict__ nbr,
               const float* __restrict__ f, const float* __restrict__ deg,
               const float* __restrict__ row_mask, float* __restrict__ out,
-              int V, int C, int compat) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)V * C) return;
-  const int v = (int)(t / C);
-  const int c = (int)(t % C);
-  const int* chi_v = chi + (long long)v * K * K;
-  const int* nbr_v = nbr + (long long)v * K;
+              int V, int C, int Vt, int Ct, int compat) {
+  using L = K3Slots<K>;
+  constexpr int P = L::kPart, NS = L::kCount, KK = K * K;
+  constexpr int Q = L::kRow, Z = L::kScalar;
+  extern __shared__ float4 k3_smem[];
+  const unsigned tid = threadIdx.x, nthreads = blockDim.x;
+  const int v0 = blockIdx.x * Vt, c0 = blockIdx.y * Ct;
+  const int nv = min(Vt, V - v0), ct = min(Ct, C - c0);
+  // staged output [v][i][j][ch][c] first (16-byte aligned), then the
+  // reductions [v][slot][c] and the tables
+  float* stage = reinterpret_cast<float*>(k3_smem);
+  float* red = stage + Vt * kChannels * KK * Ct;
+  int* chi_s = reinterpret_cast<int*>(red + Vt * NS * Ct);  // -1: out of range
+  int* nbr_s = chi_s + Vt * KK;                              // -1: out of range
+  float* mask_s = reinterpret_cast<float*>(nbr_s + Vt * K);
+  float* deg_s = mask_s + Vt * K;
+  const FastDiv div_c(ct);
 
-  float sk[K][K];    // sum_k T_k[a, b]
-  float rb[K][K];    // [k][a]: sum_b T_k[a, b]
-  float diag[K][K];  // [k][a]: T_k[a, a]
-  float colk[K][K];  // [k][a]: T_k[a, k]
-#pragma unroll
-  for (int a = 0; a < K; ++a)
-#pragma unroll
-    for (int b = 0; b < K; ++b) sk[a][b] = 0.f;
+  for (unsigned t = tid; t < (unsigned)(nv * KK); t += nthreads) {
+    const int p = chi[(long long)v0 * KK + t];
+    chi_s[t] = in_range(p, K) ? p : -1;
+  }
+  for (unsigned t = tid; t < (unsigned)(nv * K); t += nthreads) {
+    const int u = nbr[(long long)v0 * K + t];
+    nbr_s[t] = in_range(u, V) ? u : -1;
+    mask_s[t] = row_mask[(long long)v0 * K + t];
+  }
+  for (unsigned t = tid; t < (unsigned)nv; t += nthreads) deg_s[t] = deg[v0 + t];
+  __syncthreads();
 
+  // A: one item per (v, a, c): the 4K reductions of row a. All K^2
+  // loads of f are independent, so the loops unroll and they overlap.
+  for (unsigned t = tid; t < (unsigned)(nv * K * ct); t += nthreads) {
+    const unsigned vc = div_c.div(t);
+    const int c = t - vc * ct, a = vc % K, v = vc / K;
+    const int* chi_v = chi_s + v * KK;
+    float* red_v = red + v * NS * ct + c;  // slot s at red_v[s * ct]
+    float sk[K];
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int u = nbr_v[k];
-    const bool u_ok = in_range(u, V);
-    const float* f_n = f + (long long)(u_ok ? u : 0) * K * K * C + c;
-    int ia[K];
+    for (int b = 0; b < K; ++b) sk[b] = 0.f;
 #pragma unroll
-    for (int a = 0; a < K; ++a) {
-      const int p = chi_v[k * K + a];
-      ia[a] = u_ok && in_range(p, K) ? p : -1;
-    }
-#pragma unroll
-    for (int a = 0; a < K; ++a) {
-      float rsum = 0.f;
+    for (int k = 0; k < K; ++k) {
+      const int u = nbr_s[v * K + k];
+      const int ia = u >= 0 ? chi_v[k * K + a] : -1;
+      const float* f_row =
+          f + (((long long)max(u, 0) * K + max(ia, 0)) * K) * C + c0 + c;
+      float rsum = 0.f, dg = 0.f, ck = 0.f;
 #pragma unroll
       for (int b = 0; b < K; ++b) {
-        const float val = (ia[a] >= 0 && ia[b] >= 0)
-                              ? f_n[(ia[a] * K + ia[b]) * C] : 0.f;
-        sk[a][b] += val;
+        const int ib = chi_v[k * K + b];
+        const float val = ia >= 0 && ib >= 0 ? __ldg(f_row + ib * C) : 0.f;
+        sk[b] += val;
         rsum += val;
-        if (b == a) diag[k][a] = val;
-        if (b == k) colk[k][a] = val;
+        if (b == a) dg = val;
+        if (b == k) ck = val;
       }
-      rb[k][a] = rsum;
+      red_v[(P + k * K + a) * ct] = rsum;
+      red_v[(2 * P + k * K + a) * ct] = dg;
+      red_v[(3 * P + k * K + a) * ct] = ck;
+    }
+#pragma unroll
+    for (int b = 0; b < K; ++b) red_v[(b * K + a) * ct] = sk[b];
+  }
+  __syncthreads();
+
+  // B: one item per (v, i, c), i < K: the K-vectors at i; i == K: the
+  // scalars (the same sums as contract_18 takes, in its grouping)
+  for (unsigned t = tid; t < (unsigned)(nv * (K + 1) * ct); t += nthreads) {
+    const unsigned vc = div_c.div(t);
+    const int c = t - vc * ct, i = vc % (K + 1), v = vc / (K + 1);
+    float* red_v = red + v * NS * ct + c;
+    auto at = [&](int slot) { return red_v[slot * ct]; };
+    if (i < K) {
+      float s_ab = 0.f, s_kb = 0.f, s_tr = 0.f, s_11 = 0.f;
+#pragma unroll
+      for (int x = 0; x < K; ++x) {
+        s_ab += at(P + i * K + x);      // sum_a rb[k=i][a]
+        s_kb += at(P + x * K + i);      // sum_k rb[k][a=i]
+        s_tr += at(2 * P + i * K + x);  // sum_a diag[k=i][a]
+        s_11 += at(3 * P + x * K + i);  // sum_k colk[k][a=i]
+      }
+      red_v[(Q + i) * ct] = s_ab;
+      red_v[(Q + K + i) * ct] = s_kb;
+      red_v[(Q + 2 * K + i) * ct] = s_tr;
+      red_v[(Q + 3 * K + i) * ct] = s_11;
+    } else {
+      float tot = 0.f, sum_kkb = 0.f, tr_sum = 0.f, t_xxx = 0.f;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        float s_ab = 0.f, s_tr = 0.f;
+#pragma unroll
+        for (int x = 0; x < K; ++x) {
+          s_ab += at(P + k * K + x);
+          s_tr += at(2 * P + k * K + x);
+        }
+        tot += s_ab;
+        tr_sum += s_tr;
+        sum_kkb += at(P + k * K + k);
+        t_xxx += at(2 * P + k * K + k);
+      }
+      red_v[Z * ct] = tot;
+      red_v[(Z + 1) * ct] = sum_kkb;
+      red_v[(Z + 2) * ct] = tr_sum;
+      red_v[(Z + 3) * ct] = t_xxx;
     }
   }
+  __syncthreads();
 
-  // Epilogue: the reductions every channel reads, then the 18 channels
-  // exactly as contract_18 forms them (deg and row_mask broadcasts,
-  // diag_embed = delta_ij * val * m[i]).
-  const float n = deg[v];
-  float m[K], sab[K], skb[K], tr_ab[K], c11[K];
+  // C1: one item per (v, i, j, c): the 18 channels exactly as
+  // contract_18 forms them (deg and row_mask broadcasts, diag_embed =
+  // delta_ij * val * m[i]), staged in the output's own layout
+  for (unsigned t = tid; t < (unsigned)(nv * KK * ct); t += nthreads) {
+    const unsigned vij = div_c.div(t);
+    const int c = t - vij * ct, v = vij / KK, i = (vij % KK) / K, j = vij % K;
+    const float* red_v = red + v * NS * ct + c;
+    auto at = [&](int slot) { return red_v[slot * ct]; };
+    const float n = deg_s[v], mj = mask_s[v * K + j];
+    const float eye_m = i == j ? mj : 0.f;
+    const float rb = at(P + i * K + j), sk = at(j * K + i);
+    const float c1 = n * rb;
+    float* o = stage + vij * kChannels * ct + c;  // channel ch at o[ch * ct]
+    o[0] = c1;
+    o[ct] = at(Q + i) * mj;              // sab
+    o[2 * ct] = n * sk;
+    o[3 * ct] = at(Q + K + i) * mj;      // skb
+    o[4 * ct] = at(Z) * eye_m;           // tot
+    o[5 * ct] = rb;                      // c6
+    if (compat) {
 #pragma unroll
-  for (int y = 0; y < K; ++y) m[y] = row_mask[(long long)v * K + y];
-  float tot = 0.f, sum_kkb = 0.f, t_xxx = 0.f, tr_sum = 0.f;
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    float s_ab = 0.f, s_kb = 0.f, s_tr = 0.f, s_11 = 0.f;
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      s_ab += rb[i][j];    // sum_a rb[k=i][a]
-      s_kb += rb[j][i];    // sum_k rb[k][a=i]
-      s_tr += diag[i][j];  // sum_a diag[k=i][a]
-      s_11 += colk[j][i];  // sum_k colk[k][a=i]
+      for (int ch = 6; ch < 15; ++ch) o[ch * ct] = c1;
+    } else {
+      o[6 * ct] = c1;
+      o[7 * ct] = at(Q + 2 * K + i) * mj;  // tr_ab
+      o[8 * ct] = rb;
+      o[9 * ct] = sk;
+      o[10 * ct] = at(Q + 3 * K + i) * mj;  // c11
+      o[11 * ct] = at(P + j * K + i);       // rb[j][i]
+      o[12 * ct] = sk;
+      o[13 * ct] = at(Z + 1) * eye_m;       // sum_kkb
+      o[14 * ct] = at(Z + 2) * eye_m;       // tr_sum
     }
-    sab[i] = s_ab;
-    skb[i] = s_kb;
-    tr_ab[i] = s_tr;
-    c11[i] = s_11;
-    tot += s_ab;
-    tr_sum += s_tr;
-    sum_kkb += rb[i][i];
-    t_xxx += diag[i][i];
+    o[15 * ct] = at(2 * P + i * K + j);     // diag[i][j] = T_i[j, j]
+    o[16 * ct] = at(3 * P + j * K + i);     // colk[j][i] = T_j[i, j]
+    o[17 * ct] = at(Z + 3) * eye_m;         // t_xxx
   }
+  __syncthreads();
 
-  const int C18 = 18 * C;
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      float* o = out + (((long long)v * K + i) * K + j) * C18 + c;
-      const float eye_m = i == j ? m[i] : 0.f;
-      const float c1 = n * rb[i][j];
-      const float c6 = rb[i][j];
-      o[0 * C] = c1;
-      o[1 * C] = sab[i] * m[j];
-      o[2 * C] = n * sk[i][j];
-      o[3 * C] = skb[i] * m[j];
-      o[4 * C] = tot * eye_m;
-      o[5 * C] = c6;
-      if (compat) {
-#pragma unroll
-        for (int ch = 6; ch < 15; ++ch) o[ch * C] = c1;
-      } else {
-        o[6 * C] = c1;
-        o[7 * C] = tr_ab[i] * m[j];
-        o[8 * C] = c6;
-        o[9 * C] = sk[i][j];
-        o[10 * C] = c11[i] * m[j];
-        o[11 * C] = rb[j][i];
-        o[12 * C] = sk[i][j];
-        o[13 * C] = sum_kkb * eye_m;
-        o[14 * C] = tr_sum * eye_m;
-      }
-      o[15 * C] = diag[i][j];
-      o[16 * C] = colk[j][i];
-      o[17 * C] = t_xxx * eye_m;
-    }
+  // C2: the staged tile to the output. With ct == C it is one contiguous
+  // run: 16-byte copies, consecutive lanes on consecutive addresses.
+  const unsigned n_out = nv * KK * kChannels * ct;
+  float* tile = out + (long long)v0 * KK * kChannels * C;
+  unsigned first_scalar = 0;
+  if (ct == C && (reinterpret_cast<unsigned long long>(tile) & 15u) == 0) {
+    for (unsigned q = tid; q < n_out / 4; q += nthreads)
+      __stcs(reinterpret_cast<float4*>(tile) + q, k3_smem[q]);
+    first_scalar = n_out / 4 * 4;
+  }
+  for (unsigned e = first_scalar + tid; e < n_out; e += nthreads) {
+    const unsigned row = div_c.div(e), c = e - row * ct;  // row: (v, i, j, ch)
+    __stcs(tile + (long long)row * C + c0 + c, stage[e]);
   }
 }
 
@@ -340,12 +457,16 @@ extern "C" int hgnn2_ccn1d_forward(const void* chi, const void* nbr,
   return (int)cudaGetLastError();
 }
 
+// Vt vertices and Ct channels a block, smem bytes of dynamic shared
+// memory (ops/ccn_fused.py:_k3_tile chooses them).
 extern "C" int hgnn2_ccn2d_forward(const void* chi, const void* nbr,
                                    const void* f, const void* deg,
                                    const void* row_mask, void* out, int V,
-                                   int K, int C, int compat, void* stream) {
+                                   int K, int C, int compat, int Vt, int Ct,
+                                   int smem, void* stream) {
   if ((long long)V * C == 0) return 0;
-  const dim3 grid(blocks_for(V, C)), block(kThreads);
+  if (Vt < 1 || Ct < 1 || Ct > C) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((V + Vt - 1) / Vt), (unsigned)((C + Ct - 1) / Ct));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* ci = static_cast<const int*>(chi);
   const int* ni = static_cast<const int*>(nbr);
@@ -354,11 +475,22 @@ extern "C" int hgnn2_ccn2d_forward(const void* chi, const void* nbr,
   const float* mi = static_cast<const float*>(row_mask);
   float* o = static_cast<float*>(out);
   switch (K) {
-#define CASE(KK)                                                        \
-  case KK:                                                              \
-    ccn2d_forward<KK><<<grid, block, 0, s>>>(ci, ni, fi, di, mi, o, V, \
-                                             C, compat);                \
-    break;
+#define CASE(KK)                                                           \
+  case KK: {                                                               \
+    /* the block's indices stay below 2^16 (FastDiv's range) */            \
+    if (smem < 4 * Vt * K3Slots<KK>::words(Ct) ||                          \
+        (long long)Vt * KK * KK * kChannels * Ct >= 65536)                 \
+      return (int)cudaErrorInvalidValue;                                   \
+    if (smem > 48 * 1024) {                                                \
+      const cudaError_t err = cudaFuncSetAttribute(                        \
+          ccn2d_forward<KK>, cudaFuncAttributeMaxDynamicSharedMemorySize,  \
+          smem);                                                           \
+      if (err != cudaSuccess) return (int)err;                             \
+    }                                                                      \
+    ccn2d_forward<KK><<<grid, kK3Threads, smem, s>>>(ci, ni, fi, di, mi, o, \
+                                                     V, C, Vt, Ct, compat); \
+    break;                                                                 \
+  }
     CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
 #undef CASE
     default: return (int)cudaErrorInvalidValue;

@@ -3,12 +3,13 @@ kernel K5 in csrc/ring.cu (counterpart of hgnn2_tpu/ops/pallas/ring.py).
 
 ring_psum(parts) takes one float32 tensor per rank and returns, for every
 rank r, ((x_r + x_{r-1}) + x_{r-2}) + ... + x_{r-S+1}: the TPU kernel's
-hop schedule and summation order. ring_psum_reference repeats the same
-schedule in PyTorch; the two agree bit for bit.
+summation order. ring_psum_reference repeats the TPU kernel's hop
+schedule in PyTorch and so defines that order; the kernel reads the S
+inputs once in the same order, and the two agree bit for bit.
 
-For CUDA tensors ring_psum launches one kernel per hop (S - 1 launches a
-call, on the current stream) and adds them to its ``launches`` count; a
-kernel that cannot build or launch raises. For CPU tensors it runs
+For CUDA tensors ring_psum launches one kernel a call (on the current
+stream) and adds one to its ``launches`` count; a kernel that cannot
+build or launch raises. For CPU tensors it runs
 ring_psum_reference. Like the JAX package's ring, it has no gradient: it
 refuses a tensor that requires grad while grad mode is on.
 """
@@ -29,8 +30,8 @@ MAX_RANKS = 8  # the kernel's by-value pointer table; the JAX tests' largest mes
 def _kernel():
     fn = cuda_build.load("ring").hgnn2_ring_allreduce
     ptrs = ctypes.POINTER(ctypes.c_void_p)
-    fn.argtypes = [ptrs, ptrs, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_longlong, ctypes.c_void_p]
+    fn.argtypes = [ptrs, ptrs, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -84,16 +85,14 @@ def ring_psum(parts: list[torch.Tensor]) -> list[torch.Tensor]:
     n = x0.numel()
     out = torch.empty((S,) + tuple(x0.shape), dtype=torch.float32,
                       device=x0.device)
-    slots = torch.empty((2 * S * n,) if S > 2 else (0,), dtype=torch.float32,
-                        device=x0.device)
     ins = (ctypes.c_void_p * S)(*[x.data_ptr() for x in parts])
     outs = (ctypes.c_void_p * S)(*[out[r].data_ptr() for r in range(S)])
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream(x0.device).cuda_stream
-        err = _kernel()(ins, outs, slots.data_ptr() or None, S, n, stream)
+        err = _kernel()(ins, outs, S, n, stream)
     if err:
         raise RuntimeError(f"hgnn2_ring_allreduce launch failed: CUDA error {err}")
-    ring_psum.launches += S - 1
+    ring_psum.launches += 1
     return list(out.unbind(0))
 
 

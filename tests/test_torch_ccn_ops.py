@@ -155,6 +155,26 @@ def test_wrappers_validate_inputs(batches):
     assert ccn_fused.fused_contract_forward.launches == 0
 
 
+@pytest.mark.parametrize("K", range(1, ccn_fused.MAX_K + 1))
+def test_k3_tile_geometry(K):
+    """K3's tile for every K and a wide range of C: within the H100's
+    227 KB of shared memory a block, every channel in exactly one tile,
+    the block's output below the kernel's 2^16-float index range, and,
+    where a tile spans all channels, every tile's first output element
+    16-byte aligned (so the tile's stores can be float4s)."""
+    for C in (1, 2, 5, 16, 64, 256, 1024):
+        vt, ct, smem = ccn_fused._k3_tile(K, C)
+        assert vt >= 1 and 1 <= ct <= C, (K, C)
+        assert smem == ccn_fused._k3_smem(K, vt, ct) <= 227 * 1024, (K, C)
+        assert smem <= ccn_fused.K3_SMEM_BYTES
+        covered = [c for c0 in range(0, C, ct) for c in range(c0, min(c0 + ct, C))]
+        assert covered == list(range(C)), (K, C)
+        assert vt * K * K * 18 * ct < 2 ** 16, (K, C)
+        if ct == C:
+            vertex_floats = K * K * 18 * C
+            assert all(b * vt * vertex_floats * 4 % 16 == 0 for b in range(8)), (K, C)
+
+
 def test_use_kernel_rule():
     assert ccn_fused.use_kernel(5, "cuda")
     assert ccn_fused.use_kernel(8, "cuda")

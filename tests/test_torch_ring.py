@@ -61,6 +61,24 @@ def test_ring_reference_matches_jax_ring(rng, S):
     np.testing.assert_array_equal(got[1].numpy(), acc)
 
 
+@pytest.mark.parametrize("S", [2, 3, 4, 5, 8])
+def test_ring_order_every_rank(rng, S):
+    """Every rank r sums x_r, then x_{r-1}, ..., x_{r-S+1} (mod S), one
+    add at a time: the order the CUDA kernel follows, bit for bit."""
+    x = rng.standard_normal((S, 16, 8)).astype(np.float32)
+    want = np.asarray(shard_map(
+        lambda b: jring_psum(b, "edge", S, interpret=True), mesh=_edge_mesh(S),
+        in_specs=P("edge"), out_specs=P("edge"), check_rep=False)(jnp.asarray(x)))
+    parts = [torch.from_numpy(x[r]) for r in range(S)]
+    got = ring.ring_psum_reference(parts)
+    for r in range(S):
+        acc = parts[r]
+        for h in range(1, S):
+            acc = acc + parts[(r - h) % S]
+        assert torch.equal(got[r], acc), f"rank {r}"
+        np.testing.assert_allclose(got[r].numpy(), want[r], **RING_TOL)
+
+
 def test_ring_single_rank_is_identity():
     x = torch.randn(5, 3)
     (out,) = ring.ring_psum([x])
