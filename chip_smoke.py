@@ -5,20 +5,23 @@
 
 Phases, each of which raises on failure (nothing is caught):
   1. build    compile the CUDA kernels from hgnn2_torch/ops/csrc with nvcc;
-  2. kernels  hold K1 (fused CCN-1D promotion + contraction), K3 (fused
-              CCN-2D promotion + 18 contractions) and their backward
-              kernels K2 and K4 against their plain PyTorch versions on
-              the card, at the serving bucket (1,024 QM9-shaped molecules,
-              V = 16,384, K = 5; C = 5 and 2, both channel layouts) and at
-              K = 8, and K3 also on a batch whose vertex count is no
-              multiple of its tile and at C = 256 on the K = 8 batch
+  2. kernels  time the no-op kernel (the launch floor); hold K1 (fused
+              CCN-1D promotion + contraction), K3 (fused CCN-2D promotion
+              + 18 contractions) and their backward kernels K2 and K4
+              against their plain PyTorch versions on the card, at the
+              serving bucket (1,024 QM9-shaped molecules, V = 16,384,
+              K = 5; C = 5 and 2, both channel layouts) and at K = 8,
+              and all but K4 also on a batch whose vertex count is no
+              multiple of a tile and at C = 256 on the K = 8 batch
               (channel tiles); hold the gradient through each autograd
               Function against autograd through the plain path; time
-              each kernel beside its bound, and K4's PyTorch prologue
-              apart; hold K5 (the ring all-reduce) to its plain twin
-              exactly for S = 2, 4 and 8 ranks at the packed path's node
-              blocks (V = 10,944, F = 1, 5, 16), at S = 4 with 2^20 x 16
-              floats a rank, and on unaligned and odd-sized buffers;
+              each kernel (one launch, and a launch in a run of 100)
+              beside its bound, the no-op on K1's grid, and K4's PyTorch
+              prologue apart; hold K5 (the ring all-reduce) to its plain
+              twin exactly for S = 2, 4 and 8 ranks at the packed path's
+              node blocks (V = 10,944, F = 1, 5, 16), at S = 4 with
+              2^20 x 16 floats a rank, and on unaligned and odd-sized
+              buffers;
   3. serving  save CCN2D(L=2, h=2) and CCN1D(L=20, h=2) bundles with random
               weights in flax layout (converted by hgnn2_torch.convert),
               load them on the card and predict 2,048 molecules; hold the
@@ -44,7 +47,7 @@ Phases, each of which raises on failure (nothing is caught):
               forward and molecules/s for the ring, the plain reduce and
               single-rank ops.
 
-The last two lines are a JSON line describing each kernel and
+The last three lines are JSON: the launch floor, each kernel, and
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 
 Float32 matmuls run without TF32 (set below) so that Linear layers on the
@@ -94,18 +97,22 @@ OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
 
 
 BUSY_CYCLES = 20_000_000  # about 10 ms of device spin at the H100's clock
+RUN_LAUNCHES = 100  # back-to-back calls timed together (ms_in_run)
 
 
-def _time_ms(fn, reps: int = 30, warmup: int = 3,
-             busy: int = BUSY_CYCLES) -> float:
-    """Median device time of one call, by CUDA events, after warm-up.
+def _time_ms(fn, reps: int = 30, warmup: int = 3, busy: int = BUSY_CYCLES,
+             n: int = 1) -> float:
+    """Median device time of one call, by CUDA events around n
+    back-to-back calls, over n, after warm-up.
 
-    Before each call the device spins (torch.cuda._sleep) while the host
-    enqueues the start event, the call's kernels and the end event, so
+    Before each run the device spins (torch.cuda._sleep) while the host
+    enqueues the start event, the calls' kernels and the end event, so
     the interval holds the kernels back to back and none of the host's
     Python and launch overhead (tens of us per wrapper call, more than a
     small kernel takes). The spin outlasts the enqueue of a whole CCN-1D
-    forward (20 layers, a few ms of host time)."""
+    forward (20 layers, a few ms of host time); if it ended before the
+    run was enqueued the interval would hold the host's gaps, so that
+    raises. With n = 1 the time holds one launch's latency (``ms``)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -114,11 +121,56 @@ def _time_ms(fn, reps: int = 30, warmup: int = 3,
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(busy)
         start.record()
-        fn()
+        for _ in range(n):
+            fn()
         end.record()
+        if start.query():
+            raise AssertionError("the device spin ended before the run of "
+                                 f"{n} calls was enqueued")
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / n)
     return float(np.median(times))
+
+
+def _time_run_ms(fn) -> float:
+    """One call's share of a run of RUN_LAUNCHES back-to-back calls
+    (``ms_in_run``): each launch follows the last as soon as the device
+    takes it, and the inputs stay in L2 from call to call, as on the
+    CCN-1D path, where each layer reads the tables and the last layer's
+    output."""
+    return _time_ms(fn, reps=10, busy=10 * BUSY_CYCLES, n=RUN_LAUNCHES)
+
+
+def _noop_launch(blocks: int = 1, threads: int = 32):
+    """One launch of the no-op kernel (ccn_fused.cu:hgnn2_noop) on a grid
+    of ``blocks`` blocks of ``threads`` threads, on the current stream:
+    what a launch of that grid costs with no work."""
+    import ctypes
+
+    from hgnn2_torch.ops import cuda_build
+
+    fn = cuda_build.load("ccn_fused").hgnn2_noop
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        if fn(blocks, threads, stream):
+            raise RuntimeError("hgnn2_noop launch failed")
+    return launch
+
+
+def phase_floor() -> dict[str, float]:
+    """The launch floor in the two readings every kernel gets: one launch
+    between events after the device spin (floor_ms, beside each kernel's
+    ms) and one launch of a back-to-back run (floor_ms_in_run, beside
+    ms_in_run), of one block of 32 threads that does nothing."""
+    noop = _noop_launch()
+    floor = dict(floor_ms=_time_ms(noop), floor_ms_in_run=_time_run_ms(noop))
+    print(f"  no-op kernel (1 block of 32 threads, no work): one launch "
+          f"{floor['floor_ms']:.4f} ms, in a run of {RUN_LAUNCHES} "
+          f"{floor['floor_ms_in_run']:.4f} ms a launch")
+    return floor
 
 
 def _bound(n_bytes: int, n_ops: int) -> tuple[float, str]:
@@ -155,6 +207,7 @@ def _ptxas_summary(log: str) -> list[str]:
             h = re.search(r"ring_allreduceILi(\d+)ELb(\d)E", m.group(1))
             name = (f"{k.group(1)}<K={k.group(2)}>" if k else
                     f"ring_allreduce<S={h.group(1)},vec={h.group(2)}>" if h
+                    else "noop" if m.group(1).endswith("4noopEv")
                     else m.group(1))
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
@@ -260,7 +313,28 @@ def phase_kernels(dev) -> dict[str, dict]:
         err = _compare(f"{key} {label}", got, want)
         rows[key]["max_abs_err"] = max(rows[key]["max_abs_err"], err)
 
-    prologue = {}
+    def check_1d(label, b, C):
+        """K1, K2 and the gradient through promote_contract_1d on batch b
+        at C channels, each against its plain version. Returns the two
+        kernels' calls, their plain versions' and their inputs."""
+        V, K = b.nbr.shape
+        chi, nbr, rslot = b.chi_idx, b.nbr, b.rslot
+        tiles = "(tile Vt={} Ct={}, {} B shared)".format(*ccn_fused._k12_tile(K, C))
+        f1 = (randn(V, K, C) * b.row_mask[:, :, None]).contiguous()
+        g1 = randn(V, K, 2 * C)
+        k1 = lambda: ccn_fused.fused_contract_1d_forward(chi, nbr, f1)
+        p1 = lambda: P.contract_1d(P.promote_1d(chi, nbr, f1))
+        check("K1", f"{label} C={C} {tiles}", k1(), p1())
+        k2 = lambda: ccn_fused.fused_contract_1d_backward(chi, rslot, nbr, g1)
+        p2 = lambda: P.promote_1d_bwd(chi, rslot, nbr, P.contract_1d_transpose(g1))
+        check("K2", f"{label} C={C}", k2(), p2())
+        _grad_check(
+            f"grad of promote_contract_1d {label} C={C}",
+            _f_grad(lambda f: ccn_fused.promote_contract_1d(chi, nbr, f, rslot), f1, g1),
+            _f_grad(lambda f: P.contract_1d(P.promote_1d(chi, nbr, f, rslot=rslot)), f1, g1))
+        return k1, p1, k2, p2, f1, g1
+
+    prologue, grid_noop = {}, {}
     for label, b in (("serving bucket", cb), ("K=8 graphs", cb8)):
         V, K = b.nbr.shape
         label = f"{label} V={V} K={K}"
@@ -270,33 +344,28 @@ def phase_kernels(dev) -> dict[str, dict]:
         n_valid_1d = int(va.sum())
         n_valid_2d = int((va[:, :, :, None] & va[:, :, None, :]).sum())
         for C in (5, 2):
-            f1 = (randn(V, K, C) * m[:, :, None]).contiguous()
             f2 = (randn(V, K, K, C) * (m[:, :, None] * m[:, None, :])[..., None]).contiguous()
-            g1 = randn(V, K, 2 * C)
             g2 = randn(V, K, K, 18 * C)
-
-            k1 = lambda: ccn_fused.fused_contract_1d_forward(chi, nbr, f1)
-            p1 = lambda: P.contract_1d(P.promote_1d(chi, nbr, f1))
-            out1 = k1()
-            check("K1", f"{label} C={C}", out1, p1())
-            k2 = lambda: ccn_fused.fused_contract_1d_backward(chi, rslot, nbr, g1)
-            p2 = lambda: P.promote_1d_bwd(chi, rslot, nbr, P.contract_1d_transpose(g1))
-            out2 = k2()
-            check("K2", f"{label} C={C}", out2, p2())
-            _grad_check(
-                f"grad of promote_contract_1d {label} C={C}",
-                _f_grad(lambda f: ccn_fused.promote_contract_1d(chi, nbr, f, rslot), f1, g1),
-                _f_grad(lambda f: P.contract_1d(P.promote_1d(chi, nbr, f, rslot=rslot)), f1, g1))
+            k1, p1, k2, p2, f1, g1 = check_1d(label, b, C)
             if b is cb:
+                # the no-op on K1's and K2's grid: launch and block
+                # scheduling without work
+                vt, ct, _ = ccn_fused._k12_tile(K, C)
+                blocks, threads = -(-V // vt) * -(-C // ct), vt * K * ct
+                noop = _noop_launch(blocks, threads)
+                grid_noop[C] = dict(ms=_time_ms(noop), ms_in_run=_time_run_ms(noop),
+                                    blocks=blocks, threads=threads)
                 n_ops = 2 * V * K * K * C
-                bound, by = _bound(_nbytes(chi, nbr, f1, out1), n_ops)
-                timed[("K1", C)] = dict(ms=_time_ms(k1), plain_ms=_time_ms(p1),
-                                        bound_ms=bound, bound_by=by)
+                bound, by = _bound(_nbytes(chi, nbr, f1, p1()), n_ops)
+                timed[("K1", C)] = dict(ms=_time_ms(k1), ms_in_run=_time_run_ms(k1),
+                                        plain_ms=_time_ms(p1), bound_ms=bound,
+                                        bound_by=by)
                 # two adds per valid (u, j, p) entry and channel
-                bound, by = _bound(_nbytes(chi, rslot, nbr, g1, out2),
+                bound, by = _bound(_nbytes(chi, rslot, nbr, g1, p2()),
                                    2 * n_valid_1d * C)
-                timed[("K2", C)] = dict(ms=_time_ms(k2), plain_ms=_time_ms(p2),
-                                        bound_ms=bound, bound_by=by)
+                timed[("K2", C)] = dict(ms=_time_ms(k2), ms_in_run=_time_run_ms(k2),
+                                        plain_ms=_time_ms(p2), bound_ms=bound,
+                                        bound_by=by)
 
             for compat in (False, True):
                 k3 = lambda: ccn_fused.fused_contract_forward(
@@ -330,22 +399,27 @@ def phase_kernels(dev) -> dict[str, dict]:
                     n_ops = V * C * (2 * K ** 3 + 22 * K * K)
                     bound, by = _bound(_nbytes(chi, nbr, f2, b.deg, m, out3), n_ops)
                     timed[("K3", C)] = dict(
-                        ms=_time_ms(k3), plain_ms=_time_ms(p3),
-                        bound_ms=bound, bound_by=by)
+                        ms=_time_ms(k3), ms_in_run=_time_run_ms(k3),
+                        plain_ms=_time_ms(p3), bound_ms=bound, bound_by=by)
                     # about four adds per valid (u, j, p, q) entry and channel
                     bound, by = _bound(_nbytes(chi, rslot, nbr, *parts, out4),
                                        4 * n_valid_2d * C)
-                    timed[("K4", C)] = dict(ms=_time_ms(k4), plain_ms=_time_ms(p4),
-                                            bound_ms=bound, bound_by=by)
+                    timed[("K4", C)] = dict(ms=_time_ms(k4), ms_in_run=_time_run_ms(k4),
+                                            plain_ms=_time_ms(p4), bound_ms=bound,
+                                            bound_by=by)
                     # the prologue reads g and writes the four parts
                     bound, by = _bound(_nbytes(g2, b.deg, m, *parts), 0)
                     prologue[C] = dict(ms=_time_ms(pro), bound_ms=bound)
-    # K3's tiles at their edges: a vertex count that is no multiple of
-    # the tile (the exact vertex count of 100 molecules), and C = 256 on
-    # the K = 8 batch, which splits the channels over blocks
+    # K1, K2 and K3's tiles at their edges: a vertex count that is no
+    # multiple of a tile (the exact vertex count of 100 molecules), and
+    # C = 256 on the K = 8 batch, which splits the channels over blocks
     ragged = qm9.synthetic_qm9_like(100, seed=2)
     cbr = ccn.make_ccn_batch(ragged, k_max=5, task=0, device=dev,
                              vertex_capacity=sum(r.n_nodes for r in ragged))
+    for label, b, C in ((f"ragged V={cbr.nbr.shape[0]} K=5", cbr, 5),
+                        (f"ragged V={cbr.nbr.shape[0]} K=5", cbr, 2),
+                        (f"K=8 graphs V={cb8.nbr.shape[0]} K=8 wide", cb8, 256)):
+        check_1d(label, b, C)
     for label, b, C in ((f"ragged V={cbr.nbr.shape[0]} K=5", cbr, 5),
                         (f"K=8 graphs V={cb8.nbr.shape[0]} K=8 wide", cb8, 256)):
         K = b.nbr.shape[1]
@@ -360,11 +434,18 @@ def phase_kernels(dev) -> dict[str, dict]:
                   P.contract_18(P.promote_2d(b.chi_idx, b.nbr, f2), b.deg,
                                 b.row_mask, compat=compat))
     for (key, C), t in sorted(timed.items()):
-        tile = (" (tile Vt={} Ct={}, {} B shared)".format(*ccn_fused._k3_tile(5, C))
-                if key == "K3" else "")
+        tile_of = {"K1": ccn_fused._k12_tile, "K2": ccn_fused._k12_tile,
+                   "K3": ccn_fused._k3_tile}.get(key)
+        tile = (" (tile Vt={} Ct={}, {} B shared)".format(*tile_of(5, C))
+                if tile_of else "")
         print(f"  {key} {rows[key]['name']} at V={V_SERVE} K=5 C={C}: "
-              f"kernel {t['ms']:.4f} ms{tile}, plain {t['plain_ms']:.4f} ms, "
+              f"kernel {t['ms']:.4f} ms, {t['ms_in_run']:.4f} ms in a run of "
+              f"{RUN_LAUNCHES}{tile}, plain {t['plain_ms']:.4f} ms, "
               f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), library none")
+    for C, t in sorted(grid_noop.items()):
+        print(f"  no-op kernel on K1's and K2's grid at V={V_SERVE} K=5 C={C} "
+              f"({t['blocks']} blocks of {t['threads']} threads, no work): "
+              f"{t['ms']:.4f} ms, {t['ms_in_run']:.4f} ms in a run of {RUN_LAUNCHES}")
     for C, t in sorted(prologue.items()):
         print(f"  K4 prologue contract_18_transpose_parts (PyTorch ops) at "
               f"V={V_SERVE} K=5 C={C}: {t['ms']:.4f} ms, bound "
@@ -421,10 +502,12 @@ def phase_ring(dev, V: int) -> dict:
         n = parts[0].numel()
         bound, by = _bound(2 * S * n * 4, S * (S - 1) * n)
         t = dict(ms=_time_ms(lambda: ring.ring_psum(parts)),
+                 ms_in_run=_time_run_ms(lambda: ring.ring_psum(parts)),
                  plain_ms=_time_ms(lambda: ring.ring_psum_reference(parts)),
                  library_ms=_time_ms(lambda: torch.stack(parts).sum(0)),
                  bound_ms=bound, bound_by=by)
-        print(f"  K5 ring_psum S={S} {label}: kernel {t['ms']:.4f} ms "
+        print(f"  K5 ring_psum S={S} {label}: kernel {t['ms']:.4f} ms, "
+              f"{t['ms_in_run']:.4f} ms in a run of {RUN_LAUNCHES} "
               f"(1 launch, {2 * S * n * 4} bytes: 2*S*n*4, each input read "
               f"once, each output written once), plain twin "
               f"{t['plain_ms']:.4f} ms, bound {bound:.5f} ms ({by}), library "
@@ -469,7 +552,8 @@ def _breakdown(sm, chunk) -> None:
         sm.model(batch)
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3
-        dev_ms = _time_ms(lambda: sm.model(batch), reps=10, warmup=2)
+        dev_ms = _time_ms(lambda: sm.model(batch), reps=10, warmup=2,
+                          busy=10 * BUSY_CYCLES)
     print(f"  breakdown of one {len(chunk)}-molecule chunk: batch build + "
           f"copy {build_s * 1e3:.2f} ms (host clock), forward "
           f"{host_ms:.3f} ms (host clock) of which {dev_ms:.3f} ms device "
@@ -887,6 +971,7 @@ def main() -> None:
 
     packed_records = qm9.synthetic_qm9_like(N_PACKED_MOLS, seed=1)
     print("phase 2: kernels against their plain versions")
+    floor = phase_floor()
     rows = phase_kernels(dev)
     rows["K5"] = phase_ring(dev, _packed_caps(packed_records)[0])
 
@@ -902,7 +987,8 @@ def main() -> None:
     for key, row in rows.items():  # launches of the main paths' runs
         row["launches"] = served[key] + trained[key] + packed[key]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "ms_in_run", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps(floor))
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in rows.values()]}))
     print(json.dumps({"ok": True, "device": {

@@ -42,12 +42,16 @@ K3_SMEM_BYTES = 48 * 1024
 K3_MAX_VT = 32
 K3_CHANNELS = 18
 
+# K1's and K2's blocks (ccn1d_forward, ccn1d_backward): one thread per
+# (vertex, slot, channel), at most this many a block.
+K12_THREADS = 256
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "hgnn2_ccn1d_forward": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "hgnn2_ccn1d_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "hgnn2_ccn2d_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _P],
-    "hgnn2_ccn1d_backward": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "hgnn2_ccn1d_backward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "hgnn2_ccn2d_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
@@ -86,6 +90,18 @@ def _k3_tile(K: int, C: int) -> tuple[int, int, int]:
     per_channel = _k3_smem(K, 1, 1) - _k3_smem(K, 1, 0)
     ct = min(-(-C // 2), (K3_SMEM_BYTES - _k3_smem(K, 1, 0)) // per_channel)
     return 1, ct, _k3_smem(K, 1, ct)
+
+
+def _k12_tile(K: int, C: int) -> tuple[int, int, int]:
+    """K1's and K2's tile (Vt vertices, Ct channels) and its shared-memory
+    bytes. A block has one thread per (vertex, slot, channel) of its tile,
+    Vt * K * Ct <= K12_THREADS of them, and holds K floats a thread in
+    shared memory (K1: the promoted T[v, k, :, c]; K2: slot k's share of
+    df[v, :, c]), under 8 KB at any K. Ct = C unless K * C > K12_THREADS:
+    then the channels split over blocks, so there is no limit on C or V."""
+    ct = min(C, K12_THREADS // K)
+    vt = K12_THREADS // (K * ct)
+    return vt, ct, 4 * vt * K * K * ct
 
 
 def _check(f: torch.Tensor, n_k_axes: int, **tensors) -> None:
@@ -145,7 +161,7 @@ def fused_contract_1d_forward(chi_idx: torch.Tensor, nbr: torch.Tensor,
     _check_no_grad(f, "fused_contract_1d_forward")
     out = torch.empty((V, K, 2 * C), dtype=torch.float32, device=f.device)
     _launch("hgnn2_ccn1d_forward", f, chi_idx.data_ptr(), nbr.data_ptr(),
-            f.data_ptr(), out.data_ptr(), V, K, C)
+            f.data_ptr(), out.data_ptr(), V, K, C, *_k12_tile(K, C))
     fused_contract_1d_forward.launches += 1
     return out
 
@@ -169,7 +185,8 @@ def fused_contract_1d_backward(chi_idx: torch.Tensor, rslot: torch.Tensor,
             chi_idx, rslot, nbr, contractions.contract_1d_transpose(g))
     df = torch.empty((V, K, C2 // 2), dtype=torch.float32, device=g.device)
     _launch("hgnn2_ccn1d_backward", g, chi_idx.data_ptr(), rslot.data_ptr(),
-            nbr.data_ptr(), g.data_ptr(), df.data_ptr(), V, K, C2 // 2)
+            nbr.data_ptr(), g.data_ptr(), df.data_ptr(), V, K, C2 // 2,
+            *_k12_tile(K, C2 // 2))
     fused_contract_1d_backward.launches += 1
     return df
 

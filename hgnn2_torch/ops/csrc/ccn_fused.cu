@@ -35,19 +35,42 @@
 //   The backward kernels' gathers hit the same rows as the forward's
 //   (graphs are contiguous in the vertex axis), so they read mostly L2.
 //
-// K1, K2, K4: every vertex is independent, so one thread owns one
-// (vertex, channel) pair, t = v*C + c, and there is no cross-thread
-// reduction. Neighbouring threads read neighbouring channels of the same
-// gathered row and write neighbouring channels of the same output row.
-// Neighbour rows are read straight from their input by index (graphs are
-// small and contiguous in the vertex axis, so the reads mostly hit L2);
-// no halo window and no graph-size limit. An index of -1 (or any index
-// out of range) contributes an exact 0 and is never read at. K is a
-// template parameter (1..8) so every loop over K unrolls. K2 keeps K
-// and K4 K x K accumulators (25 floats at K = 5, 64 at K = 8); both loop
-// over the K slots j of u, load n, r and u's chi row once per slot, and
-// skip a slot whose n or r is out of range, so a padding slot costs no
-// read of g. In K4 the d_rb term does not depend on q, so an invalid q is
+// All four read neighbour rows straight from their input by index
+// (graphs are small and contiguous in the vertex axis, so the reads
+// mostly hit L2): no halo window and no graph-size limit. An index of -1
+// (or any index out of range) contributes an exact 0 and is never read
+// at. K is a template parameter (1..8) so every loop over K unrolls.
+//
+// K1, K2: one thread per (vertex, slot, channel) -- at the serving
+// bucket (V = 16384, K = 5) 409,600 threads at C = 5 and 163,840 at
+// C = 2, five times as many as one thread per (vertex, channel), so
+// every SM is busy and each thread's chain is short: it loads its slot's
+// neighbour n (K2: and rslot r) and its K chi entries (the C threads of
+// a slot read the same words: one transaction a warp), then issues its K
+// gathers (K1: f[n, chi[v,k,a], c]; K2: g's row half at chi[u,j,p] and
+// col half at r) together. K1's thread sums col[k] from its own K values
+// and writes them to shared memory; after one __syncthreads the thread
+// of slot k sums row[a = k] over its vertex's K slots there, so no
+// thread holds a K x K tile. K2's thread writes slot j's share of
+// df[u, p] for every p, and the thread of slot j then sums df[u, p = j]
+// over the slots. A padding slot (n or r out of range) reads no f or g.
+// Each thread stores its own floats in the output's order: consecutive
+// lanes write consecutive channels (K1: a row and a col float, C apart).
+// A block owns Vt vertices and Ct channels, Vt * K * Ct <= 256 threads
+// (ops/ccn_fused.py:_k12_tile); Ct < C only where K * C > 256. Tried on
+// the H100 and slower (PERF.md): tiles that staged the gathers or the
+// output in shared memory (16-byte stores) or the tables, a window of
+// neighbour rows in shared memory, 2 to 4 items or channels a thread
+// (fewer threads, but more registers and so fewer threads an SM), one
+// thread per output float with no shared memory, and L1-bypassing loads.
+//
+// K4: one thread owns one (vertex, channel) pair, t = v*C + c, and there
+// is no cross-thread reduction. Neighbouring threads read neighbouring
+// channels of the same gathered row and write neighbouring channels of
+// the same output row. It keeps K x K accumulators (64 floats at K = 8),
+// loops over the K slots j of u, loads n, r and u's chi row once per
+// slot, and skips a slot whose n or r is out of range, so a padding slot
+// costs no read. The d_rb term does not depend on q, so an invalid q is
 // gated explicitly like an invalid p (the Pallas kernel's qv).
 //
 // K3: a block owns a tile of Vt vertices and Ct channels (Ct = C unless
@@ -95,39 +118,50 @@ __device__ __forceinline__ bool in_range(int i, int n) {
   return (unsigned)i < (unsigned)n;
 }
 
+// ---- K1 and K2 ----
+
+// Threads of a K1 or K2 block: Vt * K * Ct of them, at most this many
+// (ops/ccn_fused.py:_k12_tile chooses the tile).
+constexpr int kK12MaxThreads = 256;
+
 template <int K>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kK12MaxThreads)
 ccn1d_forward(const int* __restrict__ chi, const int* __restrict__ nbr,
               const float* __restrict__ f, float* __restrict__ out,
-              int V, int C) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)V * C) return;
-  const int v = (int)(t / C);
-  const int c = (int)(t % C);
-  const int* chi_v = chi + (long long)v * K * K;
-  const int* nbr_v = nbr + (long long)v * K;
-  float* out_v = out + (long long)v * K * 2 * C + c;
-
-  float row[K];
+              int V, int C, int Vt, int Ct) {
+  extern __shared__ float k12_smem[];  // T[v][k][a][c] of the tile
+  const int t = threadIdx.x;
+  const int c = t % Ct, vk = t / Ct;  // thread (v, k, c), vk = v * K + k
+  const int v0 = blockIdx.x * Vt, gc = blockIdx.y * Ct + c;
+  const long long gvk = (long long)v0 * K + vk;
+  const bool active = v0 + vk / K < V && gc < C;
+  float* tk = k12_smem + vk * K * Ct + c;  // T[v][k][a][c] at tk[a * Ct]
+  float col = 0.f;
+  if (active) {
+    const int n = __ldg(nbr + gvk);
+    int p[K];
 #pragma unroll
-  for (int a = 0; a < K; ++a) row[a] = 0.f;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int u = nbr_v[k];
-    const bool u_ok = in_range(u, V);
-    const float* f_n = f + (long long)(u_ok ? u : 0) * K * C + c;
-    float col = 0.f;
+    for (int a = 0; a < K; ++a) p[a] = __ldg(chi + gvk * K + a);
+    const bool n_ok = in_range(n, V);
+    const float* f_n = f + (long long)(n_ok ? n : 0) * K * C + gc;
 #pragma unroll
     for (int a = 0; a < K; ++a) {
-      const int p = chi_v[k * K + a];
-      const float val = u_ok && in_range(p, K) ? f_n[p * C] : 0.f;
-      row[a] += val;
+      const float val = n_ok && in_range(p[a], K) ? __ldg(f_n + p[a] * C) : 0.f;
+      tk[a * Ct] = val;
       col += val;
     }
-    out_v[k * 2 * C + C] = col;
   }
+  __syncthreads();
+  if (!active) return;
+  // row[a = k] = sum over the slots y of T[v][y][k][c]
+  const int v = vk / K, k = vk % K;
+  const float* ty = k12_smem + (v * K * K + k) * Ct + c;
+  float row = 0.f;
 #pragma unroll
-  for (int a = 0; a < K; ++a) out_v[a * 2 * C] = row[a];
+  for (int y = 0; y < K; ++y) row += ty[y * K * Ct];
+  float* o = out + gvk * 2 * C + gc;
+  o[0] = row;
+  o[C] = col;
 }
 
 // ---- K3 ----
@@ -335,38 +369,39 @@ ccn2d_forward(const int* __restrict__ chi, const int* __restrict__ nbr,
 }
 
 template <int K>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kK12MaxThreads)
 ccn1d_backward(const int* __restrict__ chi, const int* __restrict__ rslot,
                const int* __restrict__ nbr, const float* __restrict__ g,
-               float* __restrict__ df, int V, int C) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)V * C) return;
-  const int u = (int)(t / C);
-  const int c = (int)(t % C);
-  const int* chi_u = chi + (long long)u * K * K;
-  const int* rslot_u = rslot + (long long)u * K;
-  const int* nbr_u = nbr + (long long)u * K;
-  const int C2 = 2 * C;
-
-  float acc[K];
+               float* __restrict__ df, int V, int C, int Vt, int Ct) {
+  extern __shared__ float k12_smem[];  // slot j's share of df[u][p][c]: [u][j][p][c]
+  const int t = threadIdx.x;
+  const int c = t % Ct, uj = t / Ct;  // thread (u, j, c), uj = u * K + j
+  const int u0 = blockIdx.x * Vt, gc = blockIdx.y * Ct + c;
+  const long long guj = (long long)u0 * K + uj;
+  const bool active = u0 + uj / K < V && gc < C;
+  float* sj = k12_smem + uj * K * Ct + c;  // slot j's share at sj[p * Ct]
+  if (active) {
+    const int n = __ldg(nbr + guj), r = __ldg(rslot + guj);
+    int a[K];
 #pragma unroll
-  for (int p = 0; p < K; ++p) acc[p] = 0.f;
+    for (int p = 0; p < K; ++p) a[p] = __ldg(chi + guj * K + p);
+    const bool ok = in_range(n, V) && in_range(r, K);
+    const long long C2 = 2 * (long long)C;
+    const float* g_n = g + (long long)(ok ? n : 0) * K * C2 + gc;  // [a][row C | col C]
+    const float col = ok ? __ldg(g_n + r * C2 + C) : 0.f;
 #pragma unroll
-  for (int j = 0; j < K; ++j) {
-    const int n = nbr_u[j];
-    const int r = rslot_u[j];
-    if (!in_range(n, V) || !in_range(r, K)) continue;
-    const float* g_n = g + (long long)n * K * C2 + c;  // [a][row C | col C]
-    const float col = g_n[r * C2 + C];
-#pragma unroll
-    for (int p = 0; p < K; ++p) {
-      const int a = chi_u[j * K + p];
-      if (in_range(a, K)) acc[p] += g_n[a * C2] + col;
-    }
+    for (int p = 0; p < K; ++p)
+      sj[p * Ct] = ok && in_range(a[p], K) ? __ldg(g_n + a[p] * C2) + col : 0.f;
   }
-  float* df_u = df + (long long)u * K * C + c;
+  __syncthreads();
+  if (!active) return;
+  // df[u][p = j][c] = sum over the slots y of their shares at p
+  const int u = uj / K, j = uj % K;
+  const float* sy = k12_smem + (u * K * K + j) * Ct + c;
+  float s = 0.f;
 #pragma unroll
-  for (int p = 0; p < K; ++p) df_u[p * C] = acc[p];
+  for (int y = 0; y < K; ++y) s += sy[y * K * Ct];
+  df[guj * C + gc] = s;
 }
 
 template <int K>
@@ -435,13 +470,60 @@ inline unsigned blocks_for(int V, int C) {
   return (unsigned)(((long long)V * C + kThreads - 1) / kThreads);
 }
 
+__global__ void noop() {}
+
+// The grid and block of a K1 or K2 launch of tile Vt x Ct; its dynamic
+// shared memory holds T (or the slots' shares) of the tile, Vt K K Ct
+// floats, at most 8 KB.
+int k12_config(int V, int C, int K, int Vt, int Ct, int smem, dim3* grid,
+               unsigned* block) {
+  const long long threads = (long long)Vt * K * Ct;
+  if (Vt < 1 || Ct < 1 || Ct > C || threads > kK12MaxThreads ||
+      smem < 4 * threads * K)
+    return (int)cudaErrorInvalidValue;
+  *grid = dim3((unsigned)((V + Vt - 1) / Vt), (unsigned)((C + Ct - 1) / Ct));
+  *block = (unsigned)threads;
+  return 0;
+}
+
+template <int K>
+int k1_launch(const int* ci, const int* ni, const float* fi, float* o, int V,
+              int C, int Vt, int Ct, int smem, cudaStream_t s) {
+  dim3 grid;
+  unsigned block;
+  const int err = k12_config(V, C, K, Vt, Ct, smem, &grid, &block);
+  if (err) return err;
+  ccn1d_forward<K><<<grid, block, smem, s>>>(ci, ni, fi, o, V, C, Vt, Ct);
+  return (int)cudaGetLastError();
+}
+
+template <int K>
+int k2_launch(const int* ci, const int* ri, const int* ni, const float* gi,
+              float* o, int V, int C, int Vt, int Ct, int smem, cudaStream_t s) {
+  dim3 grid;
+  unsigned block;
+  const int err = k12_config(V, C, K, Vt, Ct, smem, &grid, &block);
+  if (err) return err;
+  ccn1d_backward<K><<<grid, block, smem, s>>>(ci, ri, ni, gi, o, V, C, Vt, Ct);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// A kernel that does nothing, on a grid of the given size: what a launch
+// costs without work (timed by chip_smoke.py, never by the port).
+extern "C" int hgnn2_noop(int blocks, int threads, void* stream) {
+  noop<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
+
+// Vt vertices and Ct channels a block, smem bytes of dynamic shared
+// memory (ops/ccn_fused.py:_k12_tile chooses them).
 extern "C" int hgnn2_ccn1d_forward(const void* chi, const void* nbr,
                                    const void* f, void* out, int V, int K,
-                                   int C, void* stream) {
+                                   int C, int Vt, int Ct, int smem,
+                                   void* stream) {
   if ((long long)V * C == 0) return 0;
-  const dim3 grid(blocks_for(V, C)), block(kThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* ci = static_cast<const int*>(chi);
   const int* ni = static_cast<const int*>(nbr);
@@ -449,12 +531,11 @@ extern "C" int hgnn2_ccn1d_forward(const void* chi, const void* nbr,
   float* o = static_cast<float*>(out);
   switch (K) {
 #define CASE(KK) \
-  case KK: ccn1d_forward<KK><<<grid, block, 0, s>>>(ci, ni, fi, o, V, C); break;
+  case KK: return k1_launch<KK>(ci, ni, fi, o, V, C, Vt, Ct, smem, s);
     CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
 #undef CASE
-    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 // Vt vertices and Ct channels a block, smem bytes of dynamic shared
@@ -498,11 +579,13 @@ extern "C" int hgnn2_ccn2d_forward(const void* chi, const void* nbr,
   return (int)cudaGetLastError();
 }
 
+// Vt vertices and Ct channels a block, smem bytes of dynamic shared
+// memory (ops/ccn_fused.py:_k12_tile chooses them).
 extern "C" int hgnn2_ccn1d_backward(const void* chi, const void* rslot,
                                     const void* nbr, const void* g, void* df,
-                                    int V, int K, int C, void* stream) {
+                                    int V, int K, int C, int Vt, int Ct,
+                                    int smem, void* stream) {
   if ((long long)V * C == 0) return 0;
-  const dim3 grid(blocks_for(V, C)), block(kThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* ci = static_cast<const int*>(chi);
   const int* ri = static_cast<const int*>(rslot);
@@ -510,15 +593,12 @@ extern "C" int hgnn2_ccn1d_backward(const void* chi, const void* rslot,
   const float* gi = static_cast<const float*>(g);
   float* o = static_cast<float*>(df);
   switch (K) {
-#define CASE(KK)                                                       \
-  case KK:                                                             \
-    ccn1d_backward<KK><<<grid, block, 0, s>>>(ci, ri, ni, gi, o, V, C); \
-    break;
+#define CASE(KK) \
+  case KK: return k2_launch<KK>(ci, ri, ni, gi, o, V, C, Vt, Ct, smem, s);
     CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
 #undef CASE
-    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int hgnn2_ccn2d_backward(const void* chi, const void* rslot,

@@ -17,12 +17,14 @@ import jax.numpy as jnp
 import torch
 
 from hgnn2_tpu.data import qm9 as jqm9
+from hgnn2_tpu.graphs import GraphRecord as JGraphRecord
 from hgnn2_tpu.nn import ccn as jccn
 from hgnn2_tpu.ops import contractions as jC
 from hgnn2_tpu.ops import sparse as jsparse
 from hgnn2_tpu.ops.pallas import ccn_fused as jfused
 
 from hgnn2_torch.data import qm9
+from hgnn2_torch.graphs import GraphRecord
 from hgnn2_torch.nn import ccn
 from hgnn2_torch.ops import ccn_fused, sparse
 
@@ -42,6 +44,36 @@ def batches(records):
     jrecs = jqm9.synthetic_qm9_like(20, seed=0)
     return (ccn.make_ccn_batch(records, task=0, device="cpu"),
             jccn.make_ccn_batch(jrecs, task=0))
+
+
+def _k8_arrays(n_graphs=10, seed=11):
+    """Degree-capped random graphs (max degree 7, so K = 8 with
+    self-loops) as numpy (x, adj) pairs, built as chip_smoke.py builds its
+    K = 8 batch."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_graphs):
+        n = int(rng.integers(10, 17))
+        a = np.zeros((n, n), np.float32)
+        for u in range(n):
+            for v in rng.permutation(n)[:3]:
+                if u != v and a[u].sum() < 7 and a[v].sum() < 7:
+                    a[u, v] = a[v, u] = 1.0
+        out.append((rng.standard_normal((n, 3)).astype(np.float32), a))
+    return out
+
+
+@pytest.fixture(scope="module")
+def k8_batches():
+    """The same K = 8 graphs batched by both packages."""
+    y = np.zeros(1, np.float32)
+    arrays = _k8_arrays()
+    cb = ccn.make_ccn_batch([GraphRecord(x=x, adj=a, y=y) for x, a in arrays],
+                            task=0, device="cpu")
+    jb = jccn.make_ccn_batch([JGraphRecord(x=x, adj=a, y=y) for x, a in arrays],
+                             task=0)
+    assert cb.nbr.shape[1] == 8
+    return cb, jb
 
 
 def _features(cb, shape_tail, seed):
@@ -90,9 +122,14 @@ def test_graph_readout_matches_segment_sum(batches):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("C", [5, 2])
-def test_fused_1d_matches_jax(batches, C):
-    cb, jb = batches
+@pytest.mark.parametrize("kind, C", [("qm9", 5), ("qm9", 2), ("k8", 5), ("k8", 2)],
+                         ids=["5", "2", "k8-5", "k8-2"])
+def test_fused_1d_matches_jax(request, kind, C):
+    """On the 20 molecules (V = 215: no multiple of 4, so the last of
+    K1's tiles is ragged at every Vt) and on the K = 8 graphs."""
+    cb, jb = request.getfixturevalue({"qm9": "batches", "k8": "k8_batches"}[kind])
+    if kind == "qm9":
+        assert cb.nbr.shape[0] % 4
     f = _features(cb, (C,), seed=C)
     got = ccn_fused.fused_contract_1d_forward(cb.chi_idx, cb.nbr, torch.from_numpy(f))
     closed = jC.contract_1d(jC.promote_1d(jb.chi_idx, jb.nbr, jnp.asarray(f)))
@@ -173,6 +210,27 @@ def test_k3_tile_geometry(K):
         if ct == C:
             vertex_floats = K * K * 18 * C
             assert all(b * vt * vertex_floats * 4 % 16 == 0 for b in range(8)), (K, C)
+
+
+@pytest.mark.parametrize("C", [1, 2, 5, 16, 64, 256, 1024])
+@pytest.mark.parametrize("K", range(1, ccn_fused.MAX_K + 1))
+def test_k1_tile_geometry(K, C):
+    """K1's tile (ccn_fused._k12_tile, shared with K2): one thread
+    per (vertex, slot, channel), at least K (one vertex's slots at one
+    channel) and at most the kernel's 256 a block; K floats a thread in
+    shared memory (the promoted T[v, k, :, c]), within 48 KB
+    without an opt-in (and the H100's 227 KB); every channel in exactly
+    one tile, and all of them in one where K * C fits the block."""
+    vt, ct, smem = ccn_fused._k12_tile(K, C)
+    assert vt >= 1 and 1 <= ct <= C
+    assert K <= vt * K * ct <= ccn_fused.K12_THREADS == 256
+    assert smem == 4 * vt * K * ct * K <= 48 * 1024 <= 227 * 1024
+    covered = [c for c0 in range(0, C, ct) for c in range(c0, min(c0 + ct, C))]
+    assert covered == list(range(C))
+    assert (ct == C) == (K * C <= 256)
+    # the kernel's block-local indices are ints, and the channel tiles
+    # are the grid's y axis (at most 65,535 blocks)
+    assert vt * K * K * ct < 2 ** 31 and -(-C // ct) <= 65535
 
 
 def test_use_kernel_rule():

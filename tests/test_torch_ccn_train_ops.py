@@ -20,14 +20,17 @@ import jax.numpy as jnp
 import torch
 
 from hgnn2_tpu.data import qm9 as jqm9
+from hgnn2_tpu.graphs import GraphRecord as JGraphRecord
 from hgnn2_tpu.nn import ccn as jccn
 from hgnn2_tpu.ops import contractions as jC
 from hgnn2_tpu.ops.pallas import ccn_fused as jfused
 
 from hgnn2_torch.data import qm9
+from hgnn2_torch.graphs import GraphRecord
 from hgnn2_torch.nn import ccn
 from hgnn2_torch.ops import ccn_fused
 from hgnn2_torch.ops import contractions as P
+from tests.test_torch_ccn_ops import _k8_arrays
 
 torch.set_num_threads(2)
 
@@ -102,9 +105,32 @@ def test_contract_1d_transpose_matches_vjp():
                                t.grad.numpy(), **TOL)
 
 
-@pytest.mark.parametrize("C", [5, 2])
-def test_fused_1d_backward_matches_jax(batches, C):
-    cb, jb = batches
+@pytest.fixture(scope="module")
+def edge_batches():
+    """Batches at K2's tile edges, built by both packages: the 20 molecules
+    at their exact vertex count (V = 215, no multiple of 4, so the last of
+    K2's tiles is ragged at every Vt) and degree-capped graphs with K = 8
+    (test_torch_ccn_ops._k8_arrays)."""
+    recs = qm9.synthetic_qm9_like(20, seed=0)
+    jrecs = jqm9.synthetic_qm9_like(20, seed=0)
+    y = np.zeros(1, np.float32)
+    arrays = _k8_arrays()
+    out = {"ragged": (ccn.make_ccn_batch(recs, task=0, device="cpu"),
+                      jccn.make_ccn_batch(jrecs, task=0)),
+           "k8": (ccn.make_ccn_batch([GraphRecord(x=x, adj=a, y=y) for x, a in arrays],
+                                     task=0, device="cpu"),
+                  jccn.make_ccn_batch([JGraphRecord(x=x, adj=a, y=y) for x, a in arrays],
+                                      task=0))}
+    assert out["ragged"][0].nbr.shape[0] % 4 and out["k8"][0].nbr.shape[1] == 8
+    return out
+
+
+@pytest.mark.parametrize("kind, C", [("bucket", 5), ("bucket", 2), ("ragged", 5),
+                                     ("ragged", 2), ("k8", 5), ("k8", 2)],
+                         ids=["5", "2", "ragged-5", "ragged-2", "k8-5", "k8-2"])
+def test_fused_1d_backward_matches_jax(request, kind, C):
+    cb, jb = (request.getfixturevalue("batches") if kind == "bucket"
+              else request.getfixturevalue("edge_batches")[kind])
     V, K = cb.nbr.shape
     g = _randn((V, K, 2 * C), C)
     got = ccn_fused.fused_contract_1d_backward(cb.chi_idx, cb.rslot, cb.nbr,
@@ -185,6 +211,27 @@ def test_promote_gather_backward_matches_autograd(batches, order):
         grads.append((t.detach(), f.grad))
     np.testing.assert_array_equal(grads[0][0].numpy(), grads[1][0].numpy())
     _assert_grad_close(grads[1][1].numpy(), grads[0][1].numpy())
+
+
+@pytest.mark.parametrize("C", [1, 2, 5, 16, 64, 256, 1024])
+@pytest.mark.parametrize("K", range(1, ccn_fused.MAX_K + 1))
+def test_k2_tile_geometry(K, C):
+    """K2's tile (ccn_fused._k12_tile, shared with K1): one thread
+    per (vertex, slot, channel), at least K (one vertex's slots at one
+    channel) and at most the kernel's 256 a block; K floats a thread in
+    shared memory (slot k's share of df[v, :, c]), within 48 KB
+    without an opt-in (and the H100's 227 KB); every channel in exactly
+    one tile, and all of them in one where K * C fits the block."""
+    vt, ct, smem = ccn_fused._k12_tile(K, C)
+    assert vt >= 1 and 1 <= ct <= C
+    assert K <= vt * K * ct <= ccn_fused.K12_THREADS == 256
+    assert smem == 4 * vt * K * ct * K <= 48 * 1024 <= 227 * 1024
+    covered = [c for c0 in range(0, C, ct) for c in range(c0, min(c0 + ct, C))]
+    assert covered == list(range(C))
+    assert (ct == C) == (K * C <= 256)
+    # the kernel's block-local indices are ints, and the channel tiles
+    # are the grid's y axis (at most 65,535 blocks)
+    assert vt * K * K * ct < 2 ** 31 and -(-C // ct) <= 65535
 
 
 def test_backward_wrappers_validate_inputs(batches):
