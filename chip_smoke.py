@@ -8,17 +8,19 @@ Phases, each of which raises on failure (nothing is caught):
   2. kernels  time the no-op kernel (the launch floor); hold K1 (fused
               CCN-1D promotion + contraction), K3 (fused CCN-2D promotion
               + 18 contractions) and their backward kernels K2 and K4
-              against their plain PyTorch versions on the card, at the
-              serving bucket (1,024 QM9-shaped molecules, V = 16,384,
-              K = 5; C = 5 and 2, both channel layouts) and at K = 8,
-              and all but K4 also on a batch whose vertex count is no
-              multiple of a tile and at C = 256 on the K = 8 batch
-              (channel tiles); hold the gradient through each autograd
-              Function against autograd through the plain path; time
-              each kernel (one launch, and a launch in a run of 100)
-              beside its bound, the no-op on K1's grid, and K4's PyTorch
-              prologue apart; hold K5 (the ring all-reduce) to its plain
-              twin exactly for S = 2, 4 and 8 ranks at the packed path's
+              (K4: the whole backward g -> df, contract_18's adjoint
+              included) against their plain PyTorch versions on the
+              card, at the serving bucket (1,024 QM9-shaped molecules,
+              V = 16,384, K = 5; C = 5 and 2, both channel layouts), at
+              K = 8, on a batch whose vertex count is no multiple of a
+              tile and at C = 256 on the K = 8 batch (channel tiles);
+              hold the gradient through each autograd Function against
+              autograd through the plain path; time each kernel (one
+              launch, and a launch in a run of 100) beside its bound, the
+              no-op on K1's grid, and K4's plain prologue
+              (contract_18_transpose_parts) apart; hold K5 (the ring
+              all-reduce) to its plain twin exactly for S = 2, 4 and 8
+              ranks at the packed path's
               node blocks (V = 10,944, F = 1, 5, 16), at S = 4 with
               2^20 x 16 floats a rank, and on unaligned and odd-sized
               buffers;
@@ -334,6 +336,23 @@ def phase_kernels(dev) -> dict[str, dict]:
             _f_grad(lambda f: P.contract_1d(P.promote_1d(chi, nbr, f, rslot=rslot)), f1, g1))
         return k1, p1, k2, p2, f1, g1
 
+    def check_k4(label, b, C, g2, compat):
+        """K4 (g -> df) against promote_2d_bwd(contract_18_transpose(g))
+        on batch b at C channels: it sums in the plain version's order, so
+        the two should agree bit for bit. Returns K4's call, its plain
+        version's and K4's output."""
+        chi, nbr, rslot, m = b.chi_idx, b.nbr, b.rslot, b.row_mask
+        k4 = lambda: ccn_fused.fused_contract_backward(chi, rslot, nbr, g2, b.deg, m,
+                                                       compat=compat)
+        p4 = lambda: P.promote_2d_bwd(chi, rslot, nbr, P.contract_18_transpose(
+            g2, b.deg, m, compat=compat))
+        out4, want = k4(), p4()
+        tile = "(tile Vt={} Ct={}, {} B shared)".format(
+            *ccn_fused._k4_tile(b.nbr.shape[1], C))
+        check("K4", f"{label} C={C} compat={compat} {tile}, bit-equal "
+              f"{bool(torch.equal(out4, want))}", out4, want)
+        return k4, p4, out4
+
     prologue, grid_noop = {}, {}
     for label, b in (("serving bucket", cb), ("K=8 graphs", cb8)):
         V, K = b.nbr.shape
@@ -341,6 +360,7 @@ def phase_kernels(dev) -> dict[str, dict]:
         m = b.row_mask
         chi, nbr, rslot = b.chi_idx, b.nbr, b.rslot
         va = (chi >= 0) & (rslot >= 0)[:, :, None]  # valid (u, j, p)
+        n_valid_slots = int((rslot >= 0).sum())
         n_valid_1d = int(va.sum())
         n_valid_2d = int((va[:, :, :, None] & va[:, :, None, :]).sum())
         for C in (5, 2):
@@ -374,19 +394,7 @@ def phase_kernels(dev) -> dict[str, dict]:
                                            b.deg, m, compat=compat)
                 out3 = k3()
                 check("K3", f"{label} C={C} compat={compat}", out3, p3())
-                pro = lambda: [t.contiguous() for t in P.contract_18_transpose_parts(
-                    g2, b.deg, m, compat=compat)]
-                parts = pro()
-                k4 = lambda: ccn_fused.fused_contract_backward_parts(chi, rslot, nbr, *parts)
-                p4 = lambda: P.promote_2d_bwd(chi, rslot, nbr, P.gbar_from_parts(*parts))
-                out4 = k4()
-                check("K4", f"{label} C={C} compat={compat}", out4, p4())
-                check("K4", f"{label} C={C} compat={compat} from g (prologue + K4) "
-                      "vs promote_2d_bwd(contract_18_transpose(g))",
-                      ccn_fused.fused_contract_backward(chi, rslot, nbr, g2, b.deg, m,
-                                                        compat=compat),
-                      P.promote_2d_bwd(chi, rslot, nbr, P.contract_18_transpose(
-                          g2, b.deg, m, compat=compat)))
+                k4, p4, out4 = check_k4(label, b, C, g2, compat)
                 _grad_check(
                     f"grad of promote_contract_18 {label} C={C} compat={compat}",
                     _f_grad(lambda f: ccn_fused.promote_contract_18(
@@ -401,18 +409,25 @@ def phase_kernels(dev) -> dict[str, dict]:
                     timed[("K3", C)] = dict(
                         ms=_time_ms(k3), ms_in_run=_time_run_ms(k3),
                         plain_ms=_time_ms(p3), bound_ms=bound, bound_by=by)
-                    # about four adds per valid (u, j, p, q) entry and channel
-                    bound, by = _bound(_nbytes(chi, rslot, nbr, *parts, out4),
-                                       4 * n_valid_2d * C)
+                    # K4 reads g and the tables and writes df; per channel,
+                    # each valid slot's 6 masked sums of K products (12 K
+                    # operations), each valid (u, j, p)'s 2 more and its
+                    # row terms (4 K + 12), each valid (u, j, p, q)'s
+                    # entry and sum (6)
+                    n_ops = C * (12 * K * n_valid_slots + (4 * K + 12) * n_valid_1d
+                                 + 6 * n_valid_2d)
+                    bound, by = _bound(_nbytes(g2, b.deg, m, chi, rslot, nbr, out4),
+                                       n_ops)
                     timed[("K4", C)] = dict(ms=_time_ms(k4), ms_in_run=_time_run_ms(k4),
                                             plain_ms=_time_ms(p4), bound_ms=bound,
                                             bound_by=by)
-                    # the prologue reads g and writes the four parts
-                    bound, by = _bound(_nbytes(g2, b.deg, m, *parts), 0)
-                    prologue[C] = dict(ms=_time_ms(pro), bound_ms=bound)
-    # K1, K2 and K3's tiles at their edges: a vertex count that is no
-    # multiple of a tile (the exact vertex count of 100 molecules), and
-    # C = 256 on the K = 8 batch, which splits the channels over blocks
+                    # the plain version's prologue alone, the XLA step the
+                    # TPU ran before its kernel
+                    prologue[C] = _time_ms(lambda: P.contract_18_transpose_parts(
+                        g2, b.deg, m))
+    # K1..K4's tiles at their edges: a vertex count that is no multiple of
+    # a tile (the exact vertex count of 100 molecules), and C = 256 on the
+    # K = 8 batch, which splits the channels over blocks
     ragged = qm9.synthetic_qm9_like(100, seed=2)
     cbr = ccn.make_ccn_batch(ragged, k_max=5, task=0, device=dev,
                              vertex_capacity=sum(r.n_nodes for r in ragged))
@@ -421,11 +436,13 @@ def phase_kernels(dev) -> dict[str, dict]:
                         (f"K=8 graphs V={cb8.nbr.shape[0]} K=8 wide", cb8, 256)):
         check_1d(label, b, C)
     for label, b, C in ((f"ragged V={cbr.nbr.shape[0]} K=5", cbr, 5),
+                        (f"ragged V={cbr.nbr.shape[0]} K=5", cbr, 2),
                         (f"K=8 graphs V={cb8.nbr.shape[0]} K=8 wide", cb8, 256)):
-        K = b.nbr.shape[1]
+        V, K = b.nbr.shape
         vt, ct, smem = ccn_fused._k3_tile(K, C)
-        f2 = (randn(b.nbr.shape[0], K, K, C)
+        f2 = (randn(V, K, K, C)
               * (b.row_mask[:, :, None] * b.row_mask[:, None, :])[..., None]).contiguous()
+        g2 = randn(V, K, K, 18 * C)
         for compat in (False, True):
             check("K3", f"{label} C={C} compat={compat} (tile Vt={vt} Ct={ct}, "
                   f"{smem} B shared)",
@@ -433,9 +450,19 @@ def phase_kernels(dev) -> dict[str, dict]:
                                                    b.row_mask, compat=compat),
                   P.contract_18(P.promote_2d(b.chi_idx, b.nbr, f2), b.deg,
                                 b.row_mask, compat=compat))
+            check_k4(label, b, C, g2, compat)
+            if C != 256:
+                _grad_check(
+                    f"grad of promote_contract_18 {label} C={C} compat={compat}",
+                    _f_grad(lambda f: ccn_fused.promote_contract_18(
+                        b.chi_idx, b.nbr, f, b.deg, b.row_mask, b.rslot,
+                        compat=compat), f2, g2),
+                    _f_grad(lambda f: P.contract_18(P.promote_2d(
+                        b.chi_idx, b.nbr, f, rslot=b.rslot), b.deg, b.row_mask,
+                        compat=compat), f2, g2))
     for (key, C), t in sorted(timed.items()):
         tile_of = {"K1": ccn_fused._k12_tile, "K2": ccn_fused._k12_tile,
-                   "K3": ccn_fused._k3_tile}.get(key)
+                   "K3": ccn_fused._k3_tile, "K4": ccn_fused._k4_tile}.get(key)
         tile = (" (tile Vt={} Ct={}, {} B shared)".format(*tile_of(5, C))
                 if tile_of else "")
         print(f"  {key} {rows[key]['name']} at V={V_SERVE} K=5 C={C}: "
@@ -446,10 +473,10 @@ def phase_kernels(dev) -> dict[str, dict]:
         print(f"  no-op kernel on K1's and K2's grid at V={V_SERVE} K=5 C={C} "
               f"({t['blocks']} blocks of {t['threads']} threads, no work): "
               f"{t['ms']:.4f} ms, {t['ms_in_run']:.4f} ms in a run of {RUN_LAUNCHES}")
-    for C, t in sorted(prologue.items()):
-        print(f"  K4 prologue contract_18_transpose_parts (PyTorch ops) at "
-              f"V={V_SERVE} K=5 C={C}: {t['ms']:.4f} ms, bound "
-              f"{t['bound_ms']:.4f} ms (bytes)")
+    for C, ms in sorted(prologue.items()):
+        print(f"  K4's plain prologue contract_18_transpose_parts alone (PyTorch "
+              f"ops) at V={V_SERVE} K=5 C={C}: {ms:.4f} ms; K4 does g -> df, "
+              f"prologue included, in {timed[('K4', C)]['ms']:.4f} ms")
     for key, C in (("K1", 5), ("K2", 2), ("K3", 5), ("K4", 2)):
         rows[key].update(timed[(key, C)])
     return rows

@@ -6,7 +6,8 @@ hgnn2_tpu/ops/pallas/ccn_fused.py).
   fused_contract_1d_backward (K2) == promote_1d_bwd(contract_1d_transpose(g))
   fused_contract_forward     (K3) == contract_18(promote_2d(chi_idx, nbr, f),
                                                  deg, row_mask, compat)
-  fused_contract_backward    (K4) == promote_2d_bwd(contract_18_transpose(g))
+  fused_contract_backward    (K4) == promote_2d_bwd(contract_18_transpose(g,
+                                                 deg, row_mask, compat))
 
 promote_contract_1d and promote_contract_18 pair K1 with K2 and K3 with K4
 as torch.autograd.Functions (the JAX package's custom VJPs _op1d, _op).
@@ -42,9 +43,11 @@ K3_SMEM_BYTES = 48 * 1024
 K3_MAX_VT = 32
 K3_CHANNELS = 18
 
-# K1's and K2's blocks (ccn1d_forward, ccn1d_backward): one thread per
-# (vertex, slot, channel), at most this many a block.
+# K1's, K2's and K4's blocks (ccn1d_forward, ccn1d_backward,
+# ccn2d_backward): one thread per (vertex, slot, channel), at most this
+# many a block.
 K12_THREADS = 256
+K4_THREADS = 128
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
@@ -52,7 +55,8 @@ _ARGTYPES = {
     "hgnn2_ccn2d_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _P],
     "hgnn2_ccn1d_backward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "hgnn2_ccn2d_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "hgnn2_ccn2d_backward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _I, _P],
 }
 
 
@@ -92,16 +96,29 @@ def _k3_tile(K: int, C: int) -> tuple[int, int, int]:
     return 1, ct, _k3_smem(K, 1, ct)
 
 
+def _slot_tile(K: int, C: int, threads: int,
+               floats: int) -> tuple[int, int, int]:
+    """The tile (Vt vertices, Ct channels) and shared-memory bytes of a
+    kernel with one thread per (vertex, slot, channel) of its tile,
+    Vt * K * Ct <= threads of them, each holding ``floats`` floats in
+    shared memory. Ct = C unless K * C > threads: then the channels split
+    over blocks, so there is no limit on C or V."""
+    ct = min(C, threads // K)
+    vt = threads // (K * ct)
+    return vt, ct, 4 * vt * K * ct * floats
+
+
 def _k12_tile(K: int, C: int) -> tuple[int, int, int]:
-    """K1's and K2's tile (Vt vertices, Ct channels) and its shared-memory
-    bytes. A block has one thread per (vertex, slot, channel) of its tile,
-    Vt * K * Ct <= K12_THREADS of them, and holds K floats a thread in
-    shared memory (K1: the promoted T[v, k, :, c]; K2: slot k's share of
-    df[v, :, c]), under 8 KB at any K. Ct = C unless K * C > K12_THREADS:
-    then the channels split over blocks, so there is no limit on C or V."""
-    ct = min(C, K12_THREADS // K)
-    vt = K12_THREADS // (K * ct)
-    return vt, ct, 4 * vt * K * K * ct
+    """K1's and K2's tile: at most K12_THREADS threads a block, K floats a
+    thread in shared memory (K1: the promoted T[v, k, :, c]; K2: slot k's
+    share of df[v, :, c]), under 8 KB at any K."""
+    return _slot_tile(K, C, K12_THREADS, K)
+
+
+def _k4_tile(K: int, C: int) -> tuple[int, int, int]:
+    """K4's tile: at most K4_THREADS threads a block, K^2 floats a thread
+    in shared memory (slot k's share of df[v, :, :, c]), at most 32 KB."""
+    return _slot_tile(K, C, K4_THREADS, K * K)
 
 
 def _check(f: torch.Tensor, n_k_axes: int, **tensors) -> None:
@@ -225,42 +242,28 @@ def fused_contract_backward(chi_idx: torch.Tensor, rslot: torch.Tensor,
                             nbr: torch.Tensor, g: torch.Tensor,
                             deg: torch.Tensor, row_mask: torch.Tensor,
                             compat: bool = False) -> torch.Tensor:
-    """df of the fused 2D op: g (V, K, K, 18C) float32 -> (V, K, K, C).
-    The prologue contract_18_transpose_parts (plain PyTorch, as it was XLA
-    outside the Pallas kernel) folds g into four (V, K, K, C) tensors; one
-    kernel (K4) then gathers them per neighbour, so the (V, K, K, K, C)
-    gbar is never written."""
+    """df of the fused 2D op in one kernel (K4): g (V, K, K, 18C) float32
+    -> (V, K, K, C), df[u,p,q] = sum_j over valid slots of
+    gbar[nbr[u,j], rslot[u,j], chi[u,j,p], chi[u,j,q]] with gbar the
+    adjoint of contract_18 applied to g. The kernel forms each
+    neighbour's share of the adjoint from g where it needs it, so neither
+    the four (V, K, K, C) parts of contract_18_transpose_parts nor the
+    (V, K, K, K, C) gbar is written, and sums in the plain version's
+    order: the two agree bit for bit."""
     g = g.contiguous()
     if g.dim() != 4 or g.shape[-1] % 18:
         raise ValueError(f"g must be (V, K, K, 18C); got {tuple(g.shape)}")
     _check(g, 2, chi_idx=chi_idx, rslot=rslot, nbr=nbr, deg=deg,
            row_mask=row_mask)
-    parts = [p.contiguous() for p in contractions.contract_18_transpose_parts(
-        g, deg, row_mask, compat=compat)]
-    return fused_contract_backward_parts(chi_idx, rslot, nbr, *parts)
-
-
-def fused_contract_backward_parts(chi_idx, rslot, nbr, d_sk, d_rb, d_diag,
-                                  d_kakT) -> torch.Tensor:
-    """K4 alone, on the four (V, K, K, C) parts of
-    contract_18_transpose_parts: df[u,p,q] = sum_j over valid slots of
-    gbar[nbr[u,j], rslot[u,j], chi[u,j,p], chi[u,j,q]]. Its launches count
-    on fused_contract_backward."""
-    V, K = d_sk.shape[0], d_sk.shape[1]
-    C = d_sk.shape[-1]
-    for name, t in (("d_rb", d_rb), ("d_diag", d_diag), ("d_kakT", d_kakT)):
-        if t.shape != d_sk.shape or t.device != d_sk.device:
-            raise ValueError(f"{name} must be {tuple(d_sk.shape)} on {d_sk.device}")
-        _check(t, 2)
-    _check(d_sk, 2, chi_idx=chi_idx, rslot=rslot, nbr=nbr)
-    if d_sk.device.type == "cpu":
+    V, K, C = g.shape[0], g.shape[1], g.shape[-1] // 18
+    if g.device.type == "cpu":
         return contractions.promote_2d_bwd(
             chi_idx, rslot, nbr,
-            contractions.gbar_from_parts(d_sk, d_rb, d_diag, d_kakT))
-    df = torch.empty((V, K, K, C), dtype=torch.float32, device=d_sk.device)
-    _launch("hgnn2_ccn2d_backward", d_sk, chi_idx.data_ptr(), rslot.data_ptr(),
-            nbr.data_ptr(), d_sk.data_ptr(), d_rb.data_ptr(),
-            d_diag.data_ptr(), d_kakT.data_ptr(), df.data_ptr(), V, K, C)
+            contractions.contract_18_transpose(g, deg, row_mask, compat=compat))
+    df = torch.empty((V, K, K, C), dtype=torch.float32, device=g.device)
+    _launch("hgnn2_ccn2d_backward", g, chi_idx.data_ptr(), rslot.data_ptr(),
+            nbr.data_ptr(), g.data_ptr(), deg.data_ptr(), row_mask.data_ptr(),
+            df.data_ptr(), V, K, C, int(compat), *_k4_tile(K, C))
     fused_contract_backward.launches += 1
     return df
 
@@ -314,8 +317,8 @@ def promote_contract_18(chi_idx: torch.Tensor, nbr: torch.Tensor,
                         f: torch.Tensor, deg: torch.Tensor,
                         row_mask: torch.Tensor, rslot: torch.Tensor,
                         compat: bool = False) -> torch.Tensor:
-    """Differentiable fused promotion + 18 contractions: K3 forward, the
-    contract_18_transpose_parts prologue and K4 backward. Equals
+    """Differentiable fused promotion + 18 contractions: K3 forward, K4
+    backward. Equals
     contract_18(promote_2d(chi_idx, nbr, f, rslot=rslot), deg, row_mask)."""
     return _PromoteContract18.apply(chi_idx, nbr, f, deg, row_mask, rslot,
                                     compat)

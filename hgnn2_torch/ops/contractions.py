@@ -90,7 +90,10 @@ def promote_2d_bwd(chi_idx: torch.Tensor, rslot: torch.Tensor,
     flat = rowp[:, :, :, None] + sa[:, :, None, :]  # [u, j, p, q]
     vals = g.reshape(V * K * K * K, C)[flat]  # (V, K, K, K, C)
     mask = vr[:, :, None, None] & va[:, :, :, None] & va[:, :, None, :]
-    return (vals * mask[..., None].to(g.dtype)).sum(dim=1)
+    vals = vals * mask[..., None].to(g.dtype)
+    # summed over the slots in order j = 0, 1, ..., K - 1, as the CUDA
+    # backward (csrc/ccn_fused.cu) sums them, so the two agree bit for bit
+    return sum(vals[:, j] for j in range(K))
 
 
 class _Promote(torch.autograd.Function):
@@ -211,11 +214,15 @@ def contract_18_transpose_parts(g: torch.Tensor, deg: torch.Tensor,
     n = deg.to(g.dtype)[:, None, None, None]
     m = row_mask.to(g.dtype)
 
+    # The masked sums over y run in order y = 0, 1, ..., K - 1, one
+    # rounded add at a time, as the CUDA backward forms them
+    # (csrc/ccn_fused.cu, NbrParts): every step here is one f32
+    # operation, so the kernel's values equal these bit for bit.
     def unbcast(gi):  # adjoint of bcast: (V, K, K, C)[i, y] -> (V, K, C)[i]
-        return (gi * m[:, None, :, None]).sum(dim=2)
+        return sum(gi[:, :, y] * m[:, None, y, None] for y in range(K))
 
     def undiag(gi):  # adjoint of diag_embed -> (V, C)
-        return torch.einsum("vyyc->vc", gi * m[:, :, None, None])
+        return sum(gi[:, y, y] * m[:, y, None] for y in range(K))
 
     eye = torch.eye(K, dtype=g.dtype, device=g.device)[None, :, :, None]
     if compat:  # the middle channels were [c6] + [c1] * 9

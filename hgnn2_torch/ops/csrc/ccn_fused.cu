@@ -14,10 +14,14 @@
 //     df[u, p, c] = sum_j (g[n, chi[u,j,p], c] + g[n, rslot[u,j], C + c])
 //     with n = nbr[u,j], over slots j with rslot and chi entry valid.
 // K4  ccn2d_backward replaces hgnn2_tpu/ops/pallas/ccn_fused.py:_bwd_kernel
+//     and its XLA prologue contract_18_transpose_parts
+//     (hgnn2_tpu/ops/contractions.py:295, called at
+//     hgnn2_tpu/ops/pallas/ccn_fused.py:470)
 //     df[u, p, q, c] = sum_j gbar[n, r, chi[u,j,p], chi[u,j,q], c], with
 //     n = nbr[u,j], r = rslot[u,j] and gbar[n,k,a,b] = d_sk[n,a,b]
-//     + d_rb[n,k,a] + [a == b] d_diag[n,k,a] + [b == k] d_kakT[n,k,a]
-//     read from the four parts of contract_18_transpose_parts.
+//     + d_rb[n,k,a] + [a == b] d_diag[n,k,a] + [b == k] d_kakT[n,k,a],
+//     where the four parts of contract_18's adjoint are formed from
+//     g (V, K, K, 18C) inside the kernel: neither they nor gbar are written.
 // Both backward kernels are gathers: chi is symmetric across an edge, so
 // the promotion's adjoint is enumerated from the receiving vertex's side
 // and no two threads write one address (no atomics).
@@ -29,9 +33,10 @@
 //   its output write; the arithmetic (O(K^3 C) adds per vertex) is tiny.
 //   K1 moves about 6.9 MB at C = 5 (chi, nbr, f, out): about 2 us.
 //   K2 moves about 4.3 MB at C = 2 (g, chi, nbr, rslot, df): about 1.3 us.
-//   K4 reads the four parts (4 V K^2 C floats) and the tables and writes
-//   df: about 19 MB at C = 2 and 43 MB at C = 5, i.e. 6 us and 13 us.
-//   All four do O(K^2 C) to O(K^3 C) adds per vertex: bytes bound them.
+//   K4 reads g (V*K*K*18C*4 bytes: 59 MB at C = 2, 147 MB at C = 5) and
+//   the tables and writes df: about 65 MB and 158 MB, i.e. 19 us and
+//   47 us. All four do O(K^2 C) to O(K^3 C) adds per vertex: bytes bound
+//   them.
 //   The backward kernels' gathers hit the same rows as the forward's
 //   (graphs are contiguous in the vertex axis), so they read mostly L2.
 //
@@ -64,14 +69,28 @@
 // (fewer threads, but more registers and so fewer threads an SM), one
 // thread per output float with no shared memory, and L1-bypassing loads.
 //
-// K4: one thread owns one (vertex, channel) pair, t = v*C + c, and there
-// is no cross-thread reduction. Neighbouring threads read neighbouring
-// channels of the same gathered row and write neighbouring channels of
-// the same output row. It keeps K x K accumulators (64 floats at K = 8),
-// loops over the K slots j of u, loads n, r and u's chi row once per
-// slot, and skips a slot whose n or r is out of range, so a padding slot
-// costs no read. The d_rb term does not depend on q, so an invalid q is
-// gated explicitly like an invalid p (the Pallas kernel's qv).
+// K4: one thread per (vertex u, slot j, channel c), as K2. Its bound is
+// the one read of g, so the design writes nothing else: the TPU's two
+// steps (XLA forms the four (V, K, K, C) parts, then the kernel gathers
+// them) would write 13 MB at C = 2 and read it back, in two launches.
+// The thread loads its slot's neighbour n, n's slot r of u, and u's chi
+// row, and forms from n's g the parts that slot needs (NbrParts): the
+// masked sums of n's row r and diagonal, of row a for each chi entry a,
+// and the elementwise terms at [r][a] and [a][b]; a padding slot (n or r
+// out of range) reads no g. It writes the slot's share of df[u] (K^2
+// floats) to shared memory; after one barrier the thread of slot j sums
+// the pairs (p, q) = j, j + K, ... over the slots in order. A row of g is
+// read by up to K vertices, its neighbours; graphs are contiguous in the
+// vertex axis, so most re-reads can come from L2. Every sum is formed
+// with the plain versions' operations in their order (each product and
+// add rounded on its own, no fused multiply-add), so df equals
+// promote_2d_bwd(contract_18_transpose(g)) bit for bit, at any K. A
+// block has at most 128 threads and K^2 floats of shared memory a
+// thread, 32 KB at K = 8 (ops/ccn_fused.py:_k4_tile); where K * C > 128
+// the channels split over blocks. Tried on the H100 and slower (PERF.md):
+// a prologue kernel that stages g in shared memory and writes the four
+// parts, followed by a gather of them with one thread per (u, p, c) or
+// per output float; and one thread per (u, p, c) forming the parts from g.
 //
 // K3: a block owns a tile of Vt vertices and Ct channels (Ct = C unless
 // the tile would not fit shared memory; the wrapper's _k3_tile picks
@@ -109,8 +128,6 @@
 #include <cuda_runtime.h>
 
 namespace {
-
-constexpr int kThreads = 128;
 
 // The tables from make_ccn_batch hold -1 or an index in range. Any other
 // index also contributes 0, so a malformed table never reads outside f.
@@ -404,70 +421,149 @@ ccn1d_backward(const int* __restrict__ chi, const int* __restrict__ rslot,
   df[guj * C + gc] = s;
 }
 
+// ---- K4 ----
+
+// Threads of a K4 block: Vt * K * Ct of them, at most this many
+// (ops/ccn_fused.py:_k4_tile chooses the tile).
+constexpr int kK4MaxThreads = 128;
+
+// The adjoint of contract_18 at neighbour n and its slot r of the
+// receiving vertex, formed from n's g: the four parts of
+// contract_18_transpose_parts at [r][a] (d_rb, d_diag, d_kakT) and [a][b]
+// (d_sk), with the same f32 operations in the same order (the masked sums
+// over y from y = 0, every product and add rounded on its own: no fused
+// multiply-add), so they equal the plain version's bit for bit.
 template <int K>
-__global__ void __launch_bounds__(kThreads)
-ccn2d_backward(const int* __restrict__ chi, const int* __restrict__ rslot,
-               const int* __restrict__ nbr, const float* __restrict__ d_sk,
-               const float* __restrict__ d_rb,
-               const float* __restrict__ d_diag,
-               const float* __restrict__ d_kakT, float* __restrict__ df,
-               int V, int C) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)V * C) return;
-  const int u = (int)(t / C);
-  const int c = (int)(t % C);
-  const int* chi_u = chi + (long long)u * K * K;
-  const int* rslot_u = rslot + (long long)u * K;
-  const int* nbr_u = nbr + (long long)u * K;
-  const int KC = K * C;
+struct NbrParts {
+  const float* g;  // g[n][x][y][ch * C + c] at g[((x * K + y) * 18 + ch) * C]
+  const float* m;  // row_mask[n]
+  int C, compat, r;
+  // deg[n]; the masked row sums of blocks 1 and 7 at row r; the masked
+  // diagonal sums of blocks 4, 13, 14 and 17
+  float dn, s1r, s7r, d4, d13, d14, d17;
 
-  float acc[K][K];
+  // the channel block's offset ch * C apart from the row's, so the
+  // unrolled loops share each row's address (about 10 % faster on the H100
+  // than one offset ((x * K + y) * 18 + ch) * C a load)
+  __device__ float at(int x, int y, int ch) const {
+    return __ldg(g + (long long)(x * K + y) * kChannels * C + (long long)ch * C);
+  }
+  __device__ float row_sum(int x, int ch) const {
+    float s = 0.f;
 #pragma unroll
-  for (int p = 0; p < K; ++p)
+    for (int y = 0; y < K; ++y) s = __fadd_rn(s, __fmul_rn(at(x, y, ch), __ldg(m + y)));
+    return s;
+  }
+  __device__ float diag_sum(int ch) const {
+    float s = 0.f;
 #pragma unroll
-    for (int q = 0; q < K; ++q) acc[p][q] = 0.f;
-
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    const int n = nbr_u[j];
-    const int r = rslot_u[j];
-    if (!in_range(n, V) || !in_range(r, K)) continue;
-    const long long base = (long long)n * K * KC + c;
-    const float* sk_n = d_sk + base;           // [a][b]
-    const float* rb_nr = d_rb + base + r * KC;  // [a], row k = r
-    const float* dg_nr = d_diag + base + r * KC;
-    const float* kk_nr = d_kakT + base + r * KC;
-    int ia[K];
-#pragma unroll
-    for (int p = 0; p < K; ++p) {
-      const int a = chi_u[j * K + p];
-      ia[p] = in_range(a, K) ? a : -1;
-    }
-#pragma unroll
-    for (int p = 0; p < K; ++p) {
-      if (ia[p] < 0) continue;
-      const float rb = rb_nr[ia[p] * C];
-      const float dg = dg_nr[ia[p] * C];
-      const float kk = kk_nr[ia[p] * C];
-#pragma unroll
-      for (int q = 0; q < K; ++q) {
-        if (ia[q] < 0) continue;
-        float val = sk_n[(ia[p] * K + ia[q]) * C] + rb;
-        if (ia[p] == ia[q]) val += dg;
-        if (ia[q] == r) val += kk;
-        acc[p][q] += val;
-      }
+    for (int y = 0; y < K; ++y) s = __fadd_rn(s, __fmul_rn(at(y, y, ch), __ldg(m + y)));
+    return s;
+  }
+  __device__ NbrParts(const float* g_n, const float* m_n, float deg_n, int C_,
+                      int compat_, int r_)
+      : g(g_n), m(m_n), C(C_), compat(compat_), r(r_), dn(deg_n) {
+    s1r = row_sum(r, 1);
+    d4 = diag_sum(4);
+    d17 = diag_sum(17);
+    s7r = d13 = d14 = 0.f;
+    if (!compat) {
+      s7r = row_sum(r, 7);
+      d13 = diag_sum(13);
+      d14 = diag_sum(14);
     }
   }
-  float* df_u = df + (long long)u * K * KC + c;
+  // d_rb, d_diag and d_kakT at [r][a]
+  __device__ void row(int a, float& rb, float& dg, float& kk) const {
+    const float s3a = row_sum(a, 3);
+    if (compat) {  // the middle channels were [c6] + [c1] x 9
+      float c1 = 0.f;
 #pragma unroll
-  for (int p = 0; p < K; ++p)
-#pragma unroll
-    for (int q = 0; q < K; ++q) df_u[(p * K + q) * C] = acc[p][q];
-}
+      for (int ch = 6; ch < 15; ++ch) c1 = __fadd_rn(c1, at(r, a, ch));
+      c1 = __fadd_rn(at(r, a, 0), c1);
+      rb = __fadd_rn(__fmul_rn(dn, c1), at(r, a, 5));
+      rb = __fadd_rn(__fadd_rn(__fadd_rn(rb, s1r), s3a), d4);
+      dg = at(r, a, 15);
+      kk = at(a, r, 16);
+    } else {
+      const float c1 = __fadd_rn(at(r, a, 0), at(r, a, 6));
+      const float c6 = __fadd_rn(at(r, a, 5), at(r, a, 8));
+      rb = __fadd_rn(__fmul_rn(dn, c1), c6);
+      rb = __fadd_rn(__fadd_rn(__fadd_rn(rb, s1r), s3a), at(a, r, 11));
+      if (r == a) rb = __fadd_rn(rb, d13);
+      rb = __fadd_rn(rb, d4);
+      dg = __fadd_rn(__fadd_rn(at(r, a, 15), s7r), d14);
+      kk = __fadd_rn(at(a, r, 16), row_sum(a, 10));
+    }
+    if (r == a) dg = __fadd_rn(dg, d17);
+  }
+  // d_sk at [a][b]
+  __device__ float sk(int a, int b) const {
+    float v = __fmul_rn(dn, at(a, b, 2));
+    if (!compat) v = __fadd_rn(__fadd_rn(v, at(a, b, 9)), at(a, b, 12));
+    return v;
+  }
+};
 
-inline unsigned blocks_for(int V, int C) {
-  return (unsigned)(((long long)V * C + kThreads - 1) / kThreads);
+// The bound is twice the block's 128 threads: under a 128-thread bound
+// ptxas spilled at K = 7.
+template <int K>
+__global__ void __launch_bounds__(2 * kK4MaxThreads)
+ccn2d_backward(const int* __restrict__ chi, const int* __restrict__ rslot,
+               const int* __restrict__ nbr, const float* __restrict__ g,
+               const float* __restrict__ deg, const float* __restrict__ row_mask,
+               float* __restrict__ df, int V, int C, int Vt, int Ct, int compat) {
+  constexpr int KK = K * K;
+  extern __shared__ float k4_smem[];  // slot j's share of df[u][p][q][c]: [u][j][p][q][c]
+  const int t = threadIdx.x;
+  const int c = t % Ct, uj = t / Ct;  // thread (u, j, c), uj = u * K + j
+  const int u0 = blockIdx.x * Vt, gc = blockIdx.y * Ct + c;
+  const long long guj = (long long)u0 * K + uj;
+  const bool active = u0 + uj / K < V && gc < C;
+  float* sj = k4_smem + uj * KK * Ct + c;  // slot j's share at sj[(p * K + q) * Ct]
+  if (active) {
+    const int n = __ldg(nbr + guj), r = __ldg(rslot + guj);
+    int a[K];
+#pragma unroll
+    for (int p = 0; p < K; ++p) a[p] = __ldg(chi + guj * K + p);
+    if (in_range(n, V) && in_range(r, K)) {
+      const NbrParts<K> nb(g + (long long)n * KK * kChannels * C + gc,
+                           row_mask + (long long)n * K, __ldg(deg + n), C, compat, r);
+      // gbar[n, r, a_p, a_q] = d_sk[a_p][a_q] + d_rb[r][a_p]
+      //   + [a_p == a_q] d_diag[r][a_p] + [a_q == r] d_kakT[r][a_p]
+#pragma unroll
+      for (int p = 0; p < K; ++p) {
+        const bool pv = in_range(a[p], K);
+        float rb = 0.f, dg = 0.f, kk = 0.f;
+        if (pv) nb.row(a[p], rb, dg, kk);
+#pragma unroll
+        for (int q = 0; q < K; ++q) {
+          float val = 0.f;
+          if (pv && in_range(a[q], K)) {
+            val = __fadd_rn(nb.sk(a[p], a[q]), rb);
+            if (a[q] == a[p]) val = __fadd_rn(val, dg);
+            if (a[q] == r) val = __fadd_rn(val, kk);
+          }
+          sj[(p * K + q) * Ct] = val;
+        }
+      }
+    } else {  // a padding slot reads no g
+#pragma unroll
+      for (int pq = 0; pq < KK; ++pq) sj[pq * Ct] = 0.f;
+    }
+  }
+  __syncthreads();
+  if (!active) return;
+  // df[u][p][q][c] = sum over the slots y, in order, of their shares; the
+  // thread of slot j takes the K pairs (p, q) = j, j + K, ...
+  const int u = uj / K, j = uj % K;
+  const float* su = k4_smem + u * K * KK * Ct + c;  // slot y's at su[y * KK * Ct]
+  for (int pq = j; pq < KK; pq += K) {
+    float s = 0.f;
+#pragma unroll
+    for (int y = 0; y < K; ++y) s = __fadd_rn(s, su[(y * KK + pq) * Ct]);
+    df[((long long)(u0 + u) * KK + pq) * C + gc] = s;
+  }
 }
 
 __global__ void noop() {}
@@ -601,27 +697,32 @@ extern "C" int hgnn2_ccn1d_backward(const void* chi, const void* rslot,
   return (int)cudaErrorInvalidValue;
 }
 
+// Vt vertices and Ct channels a block, smem bytes of dynamic shared
+// memory (ops/ccn_fused.py:_k4_tile chooses them).
 extern "C" int hgnn2_ccn2d_backward(const void* chi, const void* rslot,
-                                    const void* nbr, const void* d_sk,
-                                    const void* d_rb, const void* d_diag,
-                                    const void* d_kakT, void* df, int V,
-                                    int K, int C, void* stream) {
+                                    const void* nbr, const void* g,
+                                    const void* deg, const void* row_mask,
+                                    void* df, int V, int K, int C, int compat,
+                                    int Vt, int Ct, int smem, void* stream) {
   if ((long long)V * C == 0) return 0;
-  const dim3 grid(blocks_for(V, C)), block(kThreads);
+  const long long threads = (long long)Vt * K * Ct;
+  if (Vt < 1 || Ct < 1 || Ct > C || threads > kK4MaxThreads ||
+      smem < 4 * threads * K * K)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((V + Vt - 1) / Vt), (unsigned)((C + Ct - 1) / Ct));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* ci = static_cast<const int*>(chi);
   const int* ri = static_cast<const int*>(rslot);
   const int* ni = static_cast<const int*>(nbr);
-  const float* sk = static_cast<const float*>(d_sk);
-  const float* rb = static_cast<const float*>(d_rb);
-  const float* dg = static_cast<const float*>(d_diag);
-  const float* kk = static_cast<const float*>(d_kakT);
+  const float* gi = static_cast<const float*>(g);
+  const float* di = static_cast<const float*>(deg);
+  const float* mi = static_cast<const float*>(row_mask);
   float* o = static_cast<float*>(df);
   switch (K) {
-#define CASE(KK)                                                        \
-  case KK:                                                              \
-    ccn2d_backward<KK><<<grid, block, 0, s>>>(ci, ri, ni, sk, rb, dg, kk, \
-                                              o, V, C);                 \
+#define CASE(KK)                                                          \
+  case KK:                                                                \
+    ccn2d_backward<KK><<<grid, (unsigned)threads, smem, s>>>(             \
+        ci, ri, ni, gi, di, mi, o, V, C, Vt, Ct, compat);                 \
     break;
     CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
 #undef CASE

@@ -46,6 +46,14 @@ def _loss_and_metrics(out, y, gmask, kind: str, mean: float, std: float):
     return loss, {"loss": loss, "mae": mae}
 
 
+def _graph_mask(batch) -> torch.Tensor:
+    """1.0 for a real graph, 0.0 for batch-size padding: the batch's gmask
+    where it has one (CCN batches), else n_nodes > 0 (dense batches)."""
+    if hasattr(batch, "gmask"):
+        return batch.gmask
+    return (batch.n_nodes > 0).float()
+
+
 def train_step(model, optimizer, scheduler, batch, kind: str = "regression",
                mean: float = 0.0, std: float = 1.0) -> dict:
     """One optimizer step on one batch. Returns the batch's metrics (on
@@ -53,7 +61,8 @@ def train_step(model, optimizer, scheduler, batch, kind: str = "regression",
     model.train()
     optimizer.zero_grad(set_to_none=True)
     out = model(batch)
-    loss, mets = _loss_and_metrics(out, batch.y, batch.gmask, kind, mean, std)
+    loss, mets = _loss_and_metrics(out, batch.y, _graph_mask(batch), kind,
+                                   mean, std)
     loss.backward()
     optimizer.step()
     scheduler.step()
@@ -65,8 +74,9 @@ def eval_step(model, batch, kind: str = "regression", mean: float = 0.0,
               std: float = 1.0) -> dict:
     model.eval()
     out = model(batch)
-    _, mets = _loss_and_metrics(out, batch.y, batch.gmask, kind, mean, std)
-    mets["count"] = batch.gmask.sum()
+    gmask = _graph_mask(batch)
+    _, mets = _loss_and_metrics(out, batch.y, gmask, kind, mean, std)
+    mets["count"] = gmask.sum()
     return mets
 
 
@@ -105,7 +115,7 @@ def run_epoch(model, optimizer, scheduler, batches, kind: str = "regression",
     for batch in batches:
         device_mets.append(train_step(model, optimizer, scheduler, batch,
                                       kind, mean, std))
-        device_counts.append(batch.gmask.sum())
+        device_counts.append(_graph_mask(batch).sum())
     if not device_mets:
         return {}
     counts = torch.stack(device_counts)

@@ -116,6 +116,23 @@ def test_loss_and_metrics_with_padding_graphs(kind):
     assert loss0.item() == 0.0
 
 
+def test_graph_mask_matches_jax():
+    """The batch's gmask where it has one (a CCN batch), else n_nodes > 0
+    (a dense batch, which has no gmask), padding graphs included."""
+    import types
+
+    n_nodes = np.array([5, 0, 3, 0, 9, 1], np.int32)
+    gmask = np.array([1, 0, 1, 1, 0, 1], np.float32)  # differs from n_nodes > 0
+    for fields in ({"gmask": gmask, "n_nodes": n_nodes}, {"n_nodes": n_nodes}):
+        mine = train._graph_mask(types.SimpleNamespace(
+            **{k: torch.from_numpy(v) for k, v in fields.items()}))
+        ref = jtrain._graph_mask(types.SimpleNamespace(
+            **{k: jnp.asarray(v) for k, v in fields.items()}))
+        assert mine.dtype == torch.float32
+        np.testing.assert_array_equal(mine.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(mine.numpy(), [1, 0, 1, 0, 1, 1])
+
+
 def test_cached_ccn_loader_matches_jax():
     """Batches, the seed + epoch order shuffle, peek_sample and a re-deal
     every 2 iterations from a shuffling inner loader, over 3 epochs."""

@@ -141,26 +141,40 @@ def test_fused_1d_backward_matches_jax(request, kind, C):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("compat", [False, True])
-def test_fused_2d_backward_matches_jax(batches, compat):
-    cb, jb = batches
+@pytest.mark.parametrize("kind, compat", [("bucket", False), ("bucket", True),
+                                          ("ragged", False), ("k8", False)],
+                         ids=["False", "True", "ragged-False", "k8-False"])
+def test_fused_2d_backward_matches_jax(request, kind, compat):
+    """Against JAX's Pallas backward in interpret mode; at K = 8 against
+    the closed form that kernel equals, _promote_2d_bwd(contract_18_transpose
+    (g)), since interpret mode unrolls the kernel's K^3 gathers a vertex
+    and compiles for longer than the whole suite may take."""
+    cb, jb = (request.getfixturevalue("batches") if kind == "bucket"
+              else request.getfixturevalue("edge_batches")[kind])
     V, K = cb.nbr.shape
     g = _randn((V, K, K, 18 * 2), 6)
     got = ccn_fused.fused_contract_backward(
         cb.chi_idx, cb.rslot, cb.nbr, torch.from_numpy(g), cb.deg,
         cb.row_mask, compat=compat)
-    want = jfused.fused_contract_backward(
-        jb.chi_idx, jb.rslot, jb.nbr, jnp.asarray(g), jb.deg, jb.row_mask,
-        compat=compat, halo=32, interpret=True)
+    if kind == "k8":
+        want = jC._promote_2d_bwd(
+            (jb.chi_idx, jb.rslot, jb.nbr),
+            jC.contract_18_transpose(jnp.asarray(g), jb.deg, jb.row_mask,
+                                     compat=compat))[3]
+    else:
+        want = jfused.fused_contract_backward(
+            jb.chi_idx, jb.rslot, jb.nbr, jnp.asarray(g), jb.deg,
+            jb.row_mask, compat=compat, halo=32, interpret=True)
     assert got.shape == (V, K, K, 2)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
                                rtol=1e-5)
-    # the K4 entry point on the adjoint parts gives the same result
+    # through the four parts of contract_18's adjoint, as the kernel forms
+    # them, the plain chain gives the same bits
     parts = P.contract_18_transpose_parts(torch.from_numpy(g), cb.deg,
                                           cb.row_mask, compat=compat)
     np.testing.assert_array_equal(
-        ccn_fused.fused_contract_backward_parts(cb.chi_idx, cb.rslot, cb.nbr,
-                                                *parts).numpy(),
+        P.promote_2d_bwd(cb.chi_idx, cb.rslot, cb.nbr,
+                         P.gbar_from_parts(*parts)).numpy(),
         got.numpy())
 
 
@@ -232,6 +246,28 @@ def test_k2_tile_geometry(K, C):
     # the kernel's block-local indices are ints, and the channel tiles
     # are the grid's y axis (at most 65,535 blocks)
     assert vt * K * K * ct < 2 ** 31 and -(-C // ct) <= 65535
+
+
+@pytest.mark.parametrize("K", range(1, ccn_fused.MAX_K + 1))
+def test_k4_tile_geometry(K):
+    """K4's tile (ccn_fused._k4_tile) at the widths 1, 2, 5, 18 and 256:
+    one thread per (vertex, slot, channel), at least K (one vertex's slots
+    at one channel) and at most the kernel's 128 a block; K^2 floats a
+    thread in shared memory (its slot's share of df[v, :, :, c]), within
+    48 KB without an opt-in; every channel in exactly one tile, and all of
+    them in one where K * C fits the block; and no limit on V, whose
+    tiles are the grid's x axis, nor on C, whose tiles are its y axis (at
+    most 65,535 blocks)."""
+    for C in (1, 2, 5, 18, 256):
+        vt, ct, smem = ccn_fused._k4_tile(K, C)
+        threads = vt * K * ct
+        assert vt >= 1 and 1 <= ct <= C, (K, C)
+        assert K <= threads <= ccn_fused.K4_THREADS == 128, (K, C)
+        assert smem == 4 * threads * K * K <= 48 * 1024, (K, C)
+        covered = [c for c0 in range(0, C, ct) for c in range(c0, min(c0 + ct, C))]
+        assert covered == list(range(C)), (K, C)
+        assert (ct == C) == (K * C <= 128), (K, C)
+        assert -(-(2 ** 31 - 1) // vt) < 2 ** 31 and -(-C // ct) <= 65535, (K, C)
 
 
 def test_backward_wrappers_validate_inputs(batches):
