@@ -1,11 +1,12 @@
 """Shared experiment runner behind the CLI entry points (counterpart of
 hgnn2_tpu/cli/common.py).
 
-So far it trains the CCN models on the synthetic QM9-shaped molecules,
-and builds the packed GNNs for inference (build_packed_model). The
-flags of later slices (--ckpt, --resume, --dp, --edge_shards, --packed,
---bn_recalib, --gru, --J, --compat_reference, --data_path) are not
-accepted; config fields of those slices raise in run_experiment or fit.
+So far it trains the power GNN (GNNSimple over dense batches) and the
+CCN models on the synthetic QM9-shaped molecules or the collinear-points
+classification set, and builds the packed GNNs for inference
+(build_packed_model). The flags of later slices (--ckpt, --resume, --dp,
+--edge_shards, --packed, --bn_recalib, --data_path) are not accepted;
+config fields of those slices raise in run_experiment or fit.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 from hgnn2_torch import convert, resolve_device
 from hgnn2_torch.data import batching, qm9, stats, synthetic
 from hgnn2_torch.nn import ccn as ccn_mod
+from hgnn2_torch.nn import models
 from hgnn2_torch.nn import packed as packed_mod
 from hgnn2_torch.nn.layers import CompatConfig
 from hgnn2_torch.ops import ccn_fused
@@ -33,13 +35,18 @@ TARGET_STATS_FILE = "target_stats.npz"
 
 
 def load_records(cfg: TrainConfig):
-    """Returns (records, kind, target_stats, source) for the synthetic
-    QM9-shaped molecules: dataset qm9_synthetic, or qm9 with no data path
-    (the JAX package's fallback). QM9 files and the classification set
-    come with later slices."""
+    """Returns (records, kind, target_stats, source): the collinear-points
+    classification set for dataset synthetic (no target stats), else the
+    synthetic QM9-shaped molecules, for dataset qm9_synthetic or qm9 with
+    no data path (the JAX package's fallback). QM9 files come with the
+    data-ingestion slice."""
     d = cfg.data
     if d.oracle_features:
         raise NotImplementedError("oracle features come with a later slice")
+    if d.dataset == "synthetic":
+        recs = synthetic.three_collinear_points(
+            d.n_synthetic, d.n_max, d.dim, d.p, d.c, seed=cfg.seed)
+        return recs, "classification", None, "synthetic"
     if d.dataset == "qm9_synthetic":
         recs = qm9.synthetic_qm9_like(d.n_synthetic, seed=cfg.seed)
         log.info("generated %d synthetic QM9-shaped molecules", len(recs))
@@ -61,6 +68,13 @@ def build_model(cfg: TrainConfig, kind: str, n_features: int):
     m = cfg.model
     dim_output = 2 if kind == "classification" else m.dim_output
     gen = torch.Generator().manual_seed(cfg.seed)
+    if m.arch == "gnn":
+        compat = (CompatConfig.reference() if m.compat_reference
+                  else CompatConfig())
+        return models.GNNSimple(
+            in_features=n_features, n_features=m.n_features,
+            n_layers=m.n_layers, dim_output=dim_output, J=m.J,
+            compat=compat, gru=m.gru, generator=gen)
     kw = dict(n_features=n_features, hidden=m.n_features,
               n_layers=m.n_layers, dim_output=dim_output,
               kernel=bool(m.ccn_kernel), generator=gen)
@@ -93,11 +107,18 @@ def build_packed_model(cfg: TrainConfig, kind: str, n_features: int):
 
 def run_experiment(cfg: TrainConfig, init_params=None):
     """Train cfg's model on cfg.device. init_params: optional weights in
-    the JAX models' flax layout (hgnn2_torch.convert) to start from in
-    place of the seeded draw. Returns (model, history)."""
+    the JAX models' flax layout (hgnn2_torch.convert; for gnn the whole
+    variables dict, batch_stats included) to start from in place of the
+    seeded draw. Returns (model, history)."""
     if cfg.dp != 1 or cfg.edge_shards != 1:
         raise NotImplementedError("--dp/--edge_shards come with the "
                                   "parallel slice")
+    if cfg.model.arch == "lggnn":
+        raise NotImplementedError("the line-graph GNN comes with the "
+                                  "line-graph slice (B)")
+    if cfg.model.packed:
+        raise NotImplementedError("--packed training comes with the packed "
+                                  "slice (D)")
     logging.basicConfig(level=logging.INFO, force=True)
     logging.getLogger("hgnn2_torch").setLevel(logging.INFO)
     dev = resolve_device(cfg.device)
@@ -107,9 +128,12 @@ def run_experiment(cfg: TrainConfig, init_params=None):
     log.info("train/valid/test sizes: %d/%d/%d", len(train_recs),
              len(valid_recs), len(test_recs))
     task = cfg.data.task if kind == "regression" else None
-    mean = float(tstats.mean[cfg.data.task])
-    std = float(tstats.std[cfg.data.task])
-    accuracy = float(tstats.accuracy[cfg.data.task])
+    mean = std = 0.0
+    accuracy = None
+    if kind == "regression":
+        mean = float(tstats.mean[cfg.data.task])
+        std = float(tstats.std[cfg.data.task])
+        accuracy = float(tstats.accuracy[cfg.data.task])
 
     log_path = cfg.log_path or os.path.join(
         "runs",
@@ -118,9 +142,11 @@ def run_experiment(cfg: TrainConfig, init_params=None):
     )
     logger = metrics_lib.ExperimentLogger(log_path)
     logger.write_settings(cfg)
-    tstats.save(os.path.join(logger.log_dir, TARGET_STATS_FILE))
+    if tstats is not None:
+        tstats.save(os.path.join(logger.log_dir, TARGET_STATS_FILE))
 
-    if cfg.model.ccn_kernel is None:
+    is_ccn = cfg.model.arch in ("ccn1d", "ccn2d")
+    if is_ccn and cfg.model.ccn_kernel is None:
         k_max = max((r.max_degree() + 1 for r in train_recs), default=99)
         cfg.model.ccn_kernel = ccn_fused.use_kernel(k_max, dev)
         if cfg.model.ccn_kernel:
@@ -129,7 +155,9 @@ def run_experiment(cfg: TrainConfig, init_params=None):
                      k_max)
     model = build_model(cfg, kind, records[0].x.shape[1])
     if init_params is not None:
-        model.load_state_dict(convert.ccn_params_from_flax(init_params))
+        model.load_state_dict(
+            convert.ccn_params_from_flax(init_params) if is_ccn
+            else convert.dense_variables_from_flax(init_params))
     model.to(dev)
 
     splits = {"train": train_recs, "valid": valid_recs, "test": test_recs}
@@ -144,8 +172,9 @@ def run_experiment(cfg: TrainConfig, init_params=None):
         # inner loader shuffles
         redeal = cfg.data.redeal_every if split == "train" else 0
         inner_shuffle = shuffle and (not cfg.data.cache_batches or redeal > 0)
-        loader = batching.CCNLoader(recs, cfg.batch_size, task=task,
-                                    shuffle=inner_shuffle, device=dev)
+        loader_cls = batching.CCNLoader if is_ccn else batching.DenseLoader
+        loader = loader_cls(recs, cfg.batch_size, task=task,
+                            shuffle=inner_shuffle, device=dev)
         if cfg.data.cache_batches:
             loader = batching.CachedLoader(
                 loader, shuffle=shuffle and cfg.data.shuffle_batches,
@@ -176,9 +205,11 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--momentum", type=float, default=0.9)
     p.add_argument("--L", dest="layers", type=int, default=15)
     p.add_argument("--h", dest="nfeatures", type=int, default=1)
+    p.add_argument("--J", type=int, default=1)
     p.add_argument("--task", type=int, default=0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--shuffle", action="store_true")
+    p.add_argument("--compat_reference", action="store_true")
     p.add_argument("--no_cache", action="store_true",
                    help="re-build every batch each epoch instead of "
                         "replaying cached batches (order-only shuffle)")
@@ -194,6 +225,8 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                         "CUDA when K <= 8)")
     p.add_argument("--no_ccn_kernel", action="store_false",
                    dest="ccn_kernel", help="force the plain PyTorch path")
+    p.add_argument("--gru", action="store_true",
+                   help="gnn: gated node-state update in every layer")
     return p
 
 
@@ -212,6 +245,9 @@ def config_from_args(args, arch: str, dataset: str) -> TrainConfig:
     cfg.model.arch = arch
     cfg.model.n_features = args.nfeatures
     cfg.model.n_layers = args.layers
+    cfg.model.J = args.J
+    cfg.model.compat_reference = args.compat_reference
+    cfg.model.gru = args.gru
     cfg.model.ccn_kernel = args.ccn_kernel
     cfg.data.dataset = dataset
     cfg.data.task = args.task

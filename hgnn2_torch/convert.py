@@ -45,38 +45,53 @@ def ccn_params_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, dict
     return params
 
 
-def packed_variables_from_flax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """PackedLGGNN/PackedGNN flax variables -> the port model's state_dict.
+def _flatten(tree: Mapping[str, Any], prefix: str = ""):
+    """(dotted module path, field, leaf) for each leaf of a nested tree."""
+    for name, sub in tree.items():
+        if isinstance(sub, Mapping):
+            yield from _flatten(sub, f"{prefix}{name}.")
+        else:
+            yield prefix[:-1], name, sub
+
+
+def variables_from_flax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Flax variables of a model with batch norm (PackedLGGNN, PackedGNN,
+    GNNSimple) -> the port model's state_dict.
 
     ``variables`` holds "params" (each Dense's ``kernel`` (in, out) and
     ``bias``; each MaskedBatchNorm's ``scale`` and ``bias``, 0-d under
     scalar_affine_bn) and "batch_stats" (each BN's running ``mean`` and
-    ``std``). Module names are the same in both packages."""
+    ``std``), flat (the packed models) or nested by module (GNNSimple's
+    ``layer0/gru/ih``). Module paths are the same in both packages, with
+    "." between levels."""
     state = {}
-    for name, leaves in variables["params"].items():
-        for field, arr in leaves.items():
+    for tree in ("params", "batch_stats"):
+        for path, field, arr in _flatten(variables.get(tree, {})):
             arr = np.asarray(arr, dtype=np.float32)
             if field == "kernel":
                 field, arr = "weight", arr.T
-            state[f"{name}.{field}"] = torch.from_numpy(arr.copy())
-    for name, leaves in variables.get("batch_stats", {}).items():
-        for field, arr in leaves.items():
-            state[f"{name}.{field}"] = torch.from_numpy(
-                np.asarray(arr, dtype=np.float32).copy())
+            state[f"{path}.{field}"] = torch.from_numpy(arr.copy())
     return state
 
 
-def packed_variables_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, dict]:
-    """The inverse of packed_variables_from_flax: {"params": ...,
-    "batch_stats": ...} of float32 numpy arrays in the flax layout."""
+def variables_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, dict]:
+    """The inverse of variables_from_flax: {"params": ..., "batch_stats":
+    ...} of float32 numpy arrays in the flax layout, nested by module."""
     out: dict[str, dict] = {"params": {}, "batch_stats": {}}
     for key, t in state_dict.items():
-        name, field = key.rsplit(".", 1)
+        *path, field = key.split(".")
         arr = t.detach().cpu().numpy().astype(np.float32)
         if field == "weight":
             field, arr = "kernel", arr.T
         elif field not in ("bias", "scale", "mean", "std"):
             raise ValueError(f"unexpected state_dict entry {key!r}")
-        tree = "batch_stats" if field in ("mean", "std") else "params"
-        out[tree].setdefault(name, {})[field] = arr.copy()
+        node = out["batch_stats" if field in ("mean", "std") else "params"]
+        for name in path:
+            node = node.setdefault(name, {})
+        node[field] = arr.copy()
     return out
+
+
+# the packed and dense models share the layout rules
+packed_variables_from_flax = dense_variables_from_flax = variables_from_flax
+packed_variables_to_flax = dense_variables_to_flax = variables_to_flax

@@ -1,10 +1,11 @@
-"""Static bucketed batching for the CCN models (counterpart of the CCN half
-of hgnn2_tpu/data/batching.py).
+"""Static bucketed batching for the dense power GNN and the CCN models
+(counterpart of hgnn2_tpu/data/batching.py; the packed loader comes with
+the packed-training slice).
 
-Every batch is padded to a vertex-capacity bucket and to a fixed graph
-count, so the number of distinct batch shapes stays small; graph-count
-padding appends empty graphs (gmask 0) that the loss ignores. Batches are
-built on the host with numpy and moved to the loader's device once.
+Every batch is padded to a node or vertex-capacity bucket and to a fixed
+graph count, so the number of distinct batch shapes stays small;
+graph-count padding appends empty graphs that the loss ignores. Batches
+are built on the host with numpy and moved to the loader's device once.
 """
 
 from __future__ import annotations
@@ -15,8 +16,53 @@ from typing import Iterator, Sequence
 import numpy as np
 import torch
 
+from hgnn2_torch import graphs
 from hgnn2_torch.graphs import GraphRecord, pad_to_bucket
 from hgnn2_torch.nn import ccn as ccn_mod
+
+DEFAULT_NODE_BUCKETS = (16, 32, 64, 128)
+
+
+@dataclasses.dataclass
+class DenseLoader:
+    """Yields DenseGraphBatch objects padded to a node bucket and to
+    batch_size graphs, on ``device`` (default cuda).
+
+    shuffle permutes the records with numpy's default_rng(seed + epoch)
+    each epoch; sort=True then orders them by node count (a stable sort,
+    so equal sizes keep the shuffled order), which groups graphs of
+    similar size into the same batches. Line-graph batches come with the
+    line-graph slice."""
+
+    records: Sequence[GraphRecord]
+    batch_size: int
+    task: int | None = None
+    node_buckets: Sequence[int] = DEFAULT_NODE_BUCKETS
+    sort: bool = True
+    shuffle: bool = False
+    seed: int = 0
+    device: str | torch.device | None = None
+    _epoch: int = 0
+
+    def __iter__(self) -> Iterator[graphs.DenseGraphBatch]:
+        idx = np.arange(len(self.records))
+        if self.shuffle:
+            rng = np.random.default_rng(self.seed + self._epoch)
+            rng.shuffle(idx)
+            self._epoch += 1
+        if self.sort:
+            sizes = np.array([self.records[i].n_nodes for i in idx])
+            idx = idx[np.argsort(sizes, kind="stable")]
+        for s in range(0, len(idx), self.batch_size):
+            chunk = [self.records[i] for i in idx[s : s + self.batch_size]]
+            n_bucket = pad_to_bucket(max(r.n_nodes for r in chunk),
+                                     self.node_buckets)
+            yield graphs.make_dense_batch(
+                chunk, n_max=n_bucket, batch_size=self.batch_size,
+                task=self.task, device=self.device)
+
+    def __len__(self) -> int:
+        return (len(self.records) + self.batch_size - 1) // self.batch_size
 
 
 @dataclasses.dataclass

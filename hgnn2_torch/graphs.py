@@ -1,9 +1,9 @@
 """Graph containers (counterpart of hgnn2_tpu/graphs.py): the host-side
-record, with its memoized max degree and line graph, and the packed batch
-of the segment-sum models.
+record, with its memoized max degree and line graph, the dense batch of
+the power GNN and the packed batch of the segment-sum models.
 
-PackedGraphBatch is assembled with numpy on the host and copied to the
-device once; its arrays equal the JAX package's bit for bit.
+Both batches are assembled with numpy on the host and copied to the
+device once; their arrays equal the JAX package's bit for bit.
 """
 
 from __future__ import annotations
@@ -53,6 +53,81 @@ def pad_to_bucket(n: int, buckets: Sequence[int]) -> int:
         if b >= n:
             return b
     raise ValueError(f"size {n} exceeds largest bucket {max(buckets)}")
+
+
+@dataclasses.dataclass
+class DenseGraphBatch:
+    """Padded dense batch; shapes are static per node bucket.
+
+    x:         (B, N, F) float32 node features (zero at padded nodes)
+    adj:       (B, N, N) float32 adjacency (zero rows/cols at padding)
+    node_mask: (B, N) float32 1.0 for real nodes
+    y:         (B,) float32 targets or (B,) int labels
+    n_nodes:   (B,) int32 (0 for batch-size padding graphs)
+
+    The line-graph fields of the JAX batch come with the line-graph slice.
+    """
+
+    x: torch.Tensor
+    adj: torch.Tensor
+    node_mask: torch.Tensor
+    y: torch.Tensor
+    n_nodes: torch.Tensor
+
+    @property
+    def batch_size(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def has_line_graph(self) -> bool:
+        return False
+
+    def to(self, device) -> "DenseGraphBatch":
+        return DenseGraphBatch(**{f.name: getattr(self, f.name).to(device)
+                                  for f in dataclasses.fields(self)})
+
+
+def make_dense_batch(
+    records: Sequence[GraphRecord],
+    n_max: int | None = None,
+    with_line_graph: bool = False,
+    batch_size: int | None = None,
+    task: int | None = None,
+    device: str | torch.device | None = None,
+) -> DenseGraphBatch:
+    """Pads records to (batch_size, n_max) on the host and copies the
+    batch to ``device`` (default cuda) once.
+
+    batch_size pads the graph axis with all-zero graphs (node_mask 0);
+    task selects one target column. Line-graph fields come with the
+    line-graph slice: with_line_graph=True raises."""
+    if with_line_graph:
+        raise NotImplementedError(
+            "dense line-graph batches come with the line-graph slice (B)")
+    dev = resolve_device(device)
+    bs = len(records)
+    B = batch_size or bs
+    N = n_max or max(r.n_nodes for r in records)
+    F = records[0].x.shape[1]
+    x = np.zeros((B, N, F), dtype=np.float32)
+    adj = np.zeros((B, N, N), dtype=np.float32)
+    node_mask = np.zeros((B, N), dtype=np.float32)
+    n_nodes = np.zeros((B,), dtype=np.int32)
+    ys = []
+    for i, r in enumerate(records):
+        n = r.n_nodes
+        x[i, :n] = r.x
+        adj[i, :n, :n] = r.adj
+        node_mask[i, :n] = 1.0
+        n_nodes[i] = n
+        ys.append(r.y if task is None else r.y[task])
+    y = np.stack([np.asarray(t) for t in ys], axis=0)
+    if not np.issubdtype(y.dtype, np.integer):
+        y = y.astype(np.float32)
+    y = np.concatenate([y, np.zeros((B - bs,) + y.shape[1:], y.dtype)])
+    arrays = dict(x=x, adj=adj, node_mask=node_mask, y=y, n_nodes=n_nodes)
+    return DenseGraphBatch(
+        **{k: torch.from_numpy(v).to(dev) for k, v in arrays.items()})
 
 
 @dataclasses.dataclass

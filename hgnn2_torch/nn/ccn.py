@@ -23,7 +23,7 @@ from torch import nn
 
 from hgnn2_torch import resolve_device
 from hgnn2_torch.graphs import GraphRecord
-from hgnn2_torch.nn.layers import ref_init
+from hgnn2_torch.nn.layers import ref_linear
 from hgnn2_torch.ops import ccn_fused, contractions, sparse
 
 
@@ -150,13 +150,6 @@ def make_ccn_batch(
                     n_graphs=B)
 
 
-def _linear(fan_in: int, fan_out: int, generator) -> nn.Linear:
-    lin = nn.Linear(fan_in, fan_out)
-    ref_init(lin.weight, generator=generator)
-    ref_init(lin.bias, generator=generator)
-    return lin
-
-
 class _CCN(nn.Module):
     """Shared skeleton: layers w1..wL, the readout after the input and
     after every layer, and the final fc over the concatenated readouts of
@@ -175,9 +168,9 @@ class _CCN(nn.Module):
         width = n_features
         for i in range(n_layers):
             self.add_module(f"w{i + 1}",
-                            _linear(self.n_channels * width, hidden, generator))
+                            ref_linear(self.n_channels * width, hidden, generator))
             width = hidden
-        self.fc = _linear(n_features + n_layers * hidden, dim_output, generator)
+        self.fc = ref_linear(n_features + n_layers * hidden, dim_output, generator)
 
     def _readout(self, f: torch.Tensor, cb: CCNBatch) -> torch.Tensor:
         per_vertex = f.sum(dim=tuple(range(1, 1 + self.order)))

@@ -1,11 +1,20 @@
-"""Layer helpers (counterpart of hgnn2_tpu/nn/layers.py): the initializer,
-the compat flags and the padding-aware batch norm of the packed models."""
+"""GNN layers (counterpart of hgnn2_tpu/nn/layers.py): the initializer,
+the compat flags, the padding-aware batch norm, the per-graph spatial
+normalization, the GRU update and the power GNN's layers over an operator
+bundle. The line-graph layers come with the line-graph slice.
+
+Submodules carry the flax names (cv1, cv2, gru.ih, gru.hh, bn, fc), so
+hgnn2_torch.convert maps weights one to one. Parameters and BN statistics
+stay float32; a layer's ``dtype`` (bf16 mixed precision) is the dtype its
+Linear layers compute in, as flax's Dense(dtype=...).
+"""
 
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -16,6 +25,23 @@ def ref_init(tensor: torch.Tensor, scale: float = 0.1,
     shared with the JAX package go through hgnn2_torch.convert."""
     with torch.no_grad():
         return tensor.normal_(0.0, scale, generator=generator)
+
+
+def ref_linear(fan_in: int, fan_out: int,
+               generator: torch.Generator | None = None) -> nn.Linear:
+    """A Linear layer with weight and bias drawn by ref_init."""
+    lin = nn.Linear(fan_in, fan_out)
+    ref_init(lin.weight, generator=generator)
+    ref_init(lin.bias, generator=generator)
+    return lin
+
+
+def _dense(lin: nn.Linear, x: torch.Tensor,
+           dtype: torch.dtype | None = None) -> torch.Tensor:
+    """lin(x) computed in ``dtype``, or else in the promoted dtype of x and
+    the (f32) weights, as flax's Dense computes."""
+    dt = dtype or torch.promote_types(x.dtype, lin.weight.dtype)
+    return F.linear(x.to(dt), lin.weight.to(dt), lin.bias.to(dt))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,3 +111,91 @@ class MaskedBatchNorm(nn.Module):
         if self.compat.mask_bn_output:
             out = out * m
         return out.to(in_dtype)
+
+
+def spatial_normalization(h: torch.Tensor, mask: torch.Tensor,
+                          eps: float = 1e-5) -> torch.Tensor:
+    """Per-graph, per-feature standardization over the valid nodes (the
+    older generation's alternative to batch norm). h (B, N, F), mask
+    (B, N)."""
+    m = mask[..., None]
+    hm = h * m
+    count = mask.sum(dim=1, keepdim=True).clamp_min(1.0)[..., None]
+    mean = hm.sum(dim=1, keepdim=True) / count
+    centered = (hm - mean) * m
+    var = eps + (centered ** 2).sum(dim=1, keepdim=True) / count
+    return centered / torch.sqrt(var)
+
+
+class GRUUpdate(nn.Module):
+    """Gated node-state update: ih = Linear(fan_in, 3 features) on the
+    input, hh = Linear(features, 3 features) on the hidden state, each
+    chunked into (r, z, n) thirds:
+        r = sigmoid(r_i + r_h); z = sigmoid(z_i + z_h)
+        n = tanh(n_i + r * n_h); out = (1 - z) * n + z * h
+    It computes in the promoted dtype of its input and its f32 weights,
+    as the flax module (whose Dense layers have no dtype) does."""
+
+    def __init__(self, fan_in: int, features: int,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.ih = ref_linear(fan_in, 3 * features, generator)
+        self.hh = ref_linear(features, 3 * features, generator)
+
+    def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        r_i, z_i, n_i = _dense(self.ih, x).chunk(3, dim=-1)
+        r_h, z_h, n_h = _dense(self.hh, h).chunk(3, dim=-1)
+        r = torch.sigmoid(r_i + r_h)
+        z = torch.sigmoid(z_i + z_h)
+        n = torch.tanh(n_i + r * n_h)
+        return (1.0 - z) * n + z * h
+
+
+class PowerLayer(nn.Module):
+    """One power-GNN iteration over x1 = bundle.graph_op(x):
+    BN(concat([relu(cv2(x1)), relu(cv1(x1))])), the concat in the order
+    (cv2, cv1). gru applies GRUUpdate(x1, z) to the concat z before BN."""
+
+    def __init__(self, fan_in: int, features_out: int,
+                 compat: CompatConfig = CompatConfig(),
+                 dtype: torch.dtype | None = None, gru: bool = False,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.dtype = dtype
+        self.cv1 = ref_linear(fan_in, features_out, generator)
+        self.cv2 = ref_linear(fan_in, features_out, generator)
+        self.gru = (GRUUpdate(fan_in, 2 * features_out, generator)
+                    if gru else None)
+        self.bn = MaskedBatchNorm(2 * features_out, compat=compat,
+                                  generator=generator)
+
+    def forward(self, bundle, x: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+        x1 = bundle.graph_op(x)
+        a = torch.relu(_dense(self.cv1, x1, self.dtype))
+        b = torch.relu(_dense(self.cv2, x1, self.dtype))
+        z = torch.cat([b, a], dim=-1)
+        if self.gru is not None:
+            z = self.gru(x1, z)
+        return self.bn(z, mask)
+
+
+class ReadoutLayer(nn.Module):
+    """Final readout: sum over nodes of fc(bundle.graph_op(x)), in f32.
+    The bias is masked to the real nodes unless compat turns that off
+    (then each graph adds bias x N_bucket)."""
+
+    def __init__(self, fan_in: int, features_out: int,
+                 compat: CompatConfig = CompatConfig(),
+                 dtype: torch.dtype | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.compat, self.dtype = compat, dtype
+        self.fc = ref_linear(fan_in, features_out, generator)
+
+    def forward(self, bundle, x: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+        y = _dense(self.fc, bundle.graph_op(x), self.dtype)
+        if self.compat.mask_readout_bias:
+            y = y * mask[..., None]
+        return y.float().sum(dim=1)

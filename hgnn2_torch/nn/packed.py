@@ -19,7 +19,7 @@ import torch
 from torch import nn
 
 from hgnn2_torch.graphs import PackedGraphBatch
-from hgnn2_torch.nn.layers import CompatConfig, MaskedBatchNorm, ref_init
+from hgnn2_torch.nn.layers import CompatConfig, MaskedBatchNorm, ref_linear
 from hgnn2_torch.ops import sparse
 
 
@@ -65,19 +65,12 @@ class SparsePackedOps:
         return self.dl
 
 
-def _linear(fan_in: int, fan_out: int, generator) -> nn.Linear:
-    lin = nn.Linear(fan_in, fan_out)
-    ref_init(lin.weight, generator=generator)
-    ref_init(lin.bias, generator=generator)
-    return lin
-
-
 class _PackedBase(nn.Module):
     def _pair(self, prefix: str, fan_in: int, generator) -> None:
         """Registers {prefix}cv1, {prefix}cv2 and {prefix}bn."""
         H = self.n_features
-        self.add_module(f"{prefix}cv1", _linear(fan_in, H, generator))
-        self.add_module(f"{prefix}cv2", _linear(fan_in, H, generator))
+        self.add_module(f"{prefix}cv1", ref_linear(fan_in, H, generator))
+        self.add_module(f"{prefix}cv2", ref_linear(fan_in, H, generator))
         self.add_module(f"{prefix}bn", MaskedBatchNorm(
             2 * H, compat=self.compat, axis_name=self.bn_axis,
             generator=generator))
@@ -128,7 +121,7 @@ class PackedLGGNN(_PackedBase):
             self._pair(f"layer{i}_node_", widths[0], generator)
             self._pair(f"layer{i}_edge_", widths[1], generator)
             xw = xlw = state
-        self.fc = _linear(k * xw + 2 * xlw, dim_output, generator)
+        self.fc = ref_linear(k * xw + 2 * xlw, dim_output, generator)
 
     def forward(self, pb: PackedGraphBatch, ops=None) -> torch.Tensor:
         if ops is None:
@@ -180,7 +173,7 @@ class PackedGNN(_PackedBase):
         for i in range(n_layers - 1):
             self._pair(f"layer{i}_", (J + 2) * width, generator)
             width = 2 * n_features
-        self.fc = _linear((J + 2) * width, dim_output, generator)
+        self.fc = ref_linear((J + 2) * width, dim_output, generator)
 
     def forward(self, pb: PackedGraphBatch,
                 graph_op_fn: Callable | None = None, ops=None) -> torch.Tensor:

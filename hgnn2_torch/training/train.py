@@ -127,15 +127,20 @@ def run_epoch(model, optimizer, scheduler, batches, kind: str = "regression",
 
 def evaluate(model, loader, kind: str = "regression", mean: float = 0.0,
              std: float = 1.0) -> dict[str, float]:
-    sums: dict[str, float] = {}
-    total = 0.0
+    """Metrics over a split, each batch weighted by its real-graph count.
+    The sums stay on the device until the split ends: one host sync."""
+    sums: dict[str, torch.Tensor] = {}
+    total = None
     for batch in loader:
         mets = eval_step(model, batch, kind, mean, std)
-        n = float(mets.pop("count"))
-        total += n
+        n = mets.pop("count")
+        total = n if total is None else total + n
         for k, v in mets.items():
-            sums[k] = sums.get(k, 0.0) + float(v) * n
-    return {k: v / max(total, 1.0) for k, v in sums.items()}
+            sums[k] = v * n if k not in sums else sums[k] + v * n
+    if total is None:
+        return {}
+    *values, total = torch.stack([*sums.values(), total]).tolist()
+    return {k: v / max(total, 1.0) for k, v in zip(sums, values)}
 
 
 def fit(

@@ -346,8 +346,8 @@ def test_run_experiment_refuses_configs_of_later_slices(tmp_path, change):
     if change == "dp":
         cfg.dp = 2
     elif change == "dataset":
-        cfg.data.dataset = "synthetic"
+        cfg.data.dataset, cfg.data.data_path = "qm9", str(tmp_path / "qm9.npz")
     else:
-        cfg.model.arch = "gnn"
+        cfg.model.arch = "lggnn"
     with pytest.raises(NotImplementedError):
         common.run_experiment(cfg)
