@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
-"""Training throughput of the PyTorch port's main path: the power GNN
-GNNSimple (L=15, h=1, J=1) on 107,108 QM9-shaped synthetic molecules at
-batch 2,048, on one CUDA card (the port's counterpart of bench.py).
+"""Training throughput of the PyTorch port's dense GNNs on 107,108
+QM9-shaped synthetic molecules at batch 2,048, on one CUDA card (the
+port's counterpart of bench.py): by default the main path, the power GNN
+GNNSimple (L=15, h=1, J=1); with --arch lggnn the line-graph GNN
+GNNLineGraph (L=5, h=1, J=1, update order 2), bench_epoch.py's lggnn_L5.
 
     python3 bench_torch.py                  # on the card
+    python3 bench_torch.py --arch lggnn     # the line-graph GNN
     python3 bench_torch.py --device cpu --molecules 300 --batch 64
 
-The pipeline is the CLI's default: CachedLoader(DenseLoader(sort=True))
+The pipeline is the CLI's default: CachedLoader(DenseLoader(sort=True),
+with line graphs for lggnn)
 batches resident on the device, epochs visited in the JAX package's
 scanned-epoch order (training.train.groups_in_order: shape groups and
 their members shuffled by one default_rng(0)), Adamax at lr 3e-4, a
@@ -22,7 +26,7 @@ steps on one batch, after a warm-up run.
 Float32 matmuls run without TF32, so the card computes what the CPU
 computes. Prints exactly one JSON line on stdout (bench.py's keys less
 the baseline ratios, plus the card's name and power limit and the TF32
-setting); logs go to stderr.
+setting, and the arch); logs go to stderr.
 """
 
 from __future__ import annotations
@@ -72,6 +76,7 @@ def _sync(dev: torch.device) -> None:
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--device", default="cuda")
+    p.add_argument("--arch", choices=("gnn", "lggnn"), default="gnn")
     p.add_argument("--molecules", type=int, default=MOLECULES)
     p.add_argument("--batch", type=int, default=BATCH)
     p.add_argument("--epochs", type=int, default=EPOCHS)
@@ -88,6 +93,7 @@ def main(argv=None) -> dict:
 
     loader = batching.CachedLoader(
         batching.DenseLoader(records, args.batch, task=0, sort=True,
+                             with_line_graph=args.arch == "lggnn",
                              device=dev),
         shuffle=True, seed=0)
     t0 = time.time()
@@ -95,9 +101,18 @@ def main(argv=None) -> dict:
     _sync(dev)
     log(f"built {len(loader)} batches in {time.time() - t0:.1f}s")
 
-    model = models.GNNSimple(in_features=records[0].x.shape[1], n_features=1,
-                             n_layers=15, J=1,
-                             generator=torch.Generator().manual_seed(0)).to(dev)
+    gen = torch.Generator().manual_seed(0)
+    if args.arch == "lggnn":
+        n_layers = 5
+        model = models.GNNLineGraph(in_features=records[0].x.shape[1],
+                                    n_features=1, n_layers=n_layers, J=1,
+                                    order=2, generator=gen)
+    else:
+        n_layers = 15
+        model = models.GNNSimple(in_features=records[0].x.shape[1],
+                                 n_features=1, n_layers=n_layers, J=1,
+                                 generator=gen)
+    model.to(dev)
     opt, sched = build_optimizer(OptimConfig(optim="adamax", lr=3e-4),
                                  len(loader), model.parameters())
     sample = next(iter(loader))
@@ -139,7 +154,8 @@ def main(argv=None) -> dict:
     log(f"upper bound (one resident batch): {ub_mol_per_s:,.1f} molecules/s")
 
     result = {
-        "metric": "gnn_qm9_L15_train_throughput_end_to_end",
+        "metric": f"{args.arch}_qm9_L{n_layers}_train_throughput_end_to_end",
+        "arch": args.arch,
         "value": mol_per_s,
         "unit": "molecules/s",
         "epoch_s": epoch_s,

@@ -60,7 +60,19 @@ Phases, each of which raises on failure (nothing is caught):
               f32 (the L=15 model's bf16 deviation is printed); time a
               step (host clock, device split by CUDA events, the CUDA
               kernels of each part by torch.profiler, the card's busy
-              share). Phase 4 prints the same for the CCN steps.
+              share). Phase 4 prints the same for the CCN steps;
+  7. lggnn    the line-graph GNN, which runs no hand-written kernel either:
+              train GNNLineGraph(L=5, h=1, J=1, update order 2) through
+              cli.common.run_experiment on the card (the same 20,480
+              molecules, 2,048 a step, 2 epochs, Adamax at lr 3e-4) from
+              seeded flax-layout weights; check finite losses, the first
+              steps' losses, the step-0 gradients and the node and edge
+              BN running stats, and eval predictions on a valid batch
+              against the CPU; GNNLineGraph(L=3, h=2, J=2) with update
+              orders 1 and 3, fused_ops and the reference compat flags on
+              that batch, card vs CPU and fused vs unfused on the card;
+              bf16 lg_graph_op against f32 (the L=5 model's bf16
+              deviation is printed); time a step as phase 6 does.
 
 The last three lines are JSON: the launch floor, each kernel, and
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
@@ -698,9 +710,10 @@ def _train_setup(cfg, params, device, records):
 
     ts = stats.compute_target_stats(records)
     train_recs = synthetic.split_80_10_10(records, seed=cfg.seed)[0]
-    if cfg.model.arch == "gnn":
-        loader = batching.DenseLoader(train_recs, cfg.batch_size, task=0,
-                                      device=device)
+    if cfg.model.arch in ("gnn", "lggnn"):
+        loader = batching.DenseLoader(
+            train_recs, cfg.batch_size, task=0,
+            with_line_graph=cfg.model.arch == "lggnn", device=device)
         state = convert.dense_variables_from_flax(params)
     else:
         loader = batching.CCNLoader(train_recs, cfg.batch_size, task=0,
@@ -1085,11 +1098,32 @@ def _main_cfg(device: str, log_path: str | None = None, **model):
     return cfg
 
 
+def _forwards(model, params, batch) -> tuple:
+    """A train-mode forward (batch statistics) from ``params``, the BN
+    running stats it leaves and an eval forward from them."""
+    from hgnn2_torch import convert
+
+    model.load_state_dict(convert.dense_variables_from_flax(params))
+    model.to(batch.x.device).train()
+    with torch.no_grad():
+        out = model(batch)
+        stats = {k: v for k, v in model.state_dict().items()
+                 if k.endswith((".mean", ".std"))}
+        return out, stats, model.eval()(batch)
+
+
+def _forward_errs(got: tuple, want: tuple) -> tuple[float, float, float]:
+    """_forwards' three results against another run's: max err / max |value|
+    of the train-mode output, of any BN running stat and of the eval output."""
+    return (_rel_err(got[0], want[0]),
+            max(_rel_err(got[1][k], v) for k, v in want[1].items()),
+            _rel_err(got[2], want[2]))
+
+
 def phase_main(dev, card: str) -> dict[str, int]:
     """Train GNNSimple(L=15, h=1, J=1) through run_experiment on the card
     (``dev``) and hold it to the CPU. Returns each kernel's launches in
     that run (the path has none)."""
-    from hgnn2_torch import convert
     from hgnn2_torch.cli import common
     from hgnn2_torch.data import batching, qm9, synthetic
     from hgnn2_torch.nn import models
@@ -1148,20 +1182,11 @@ def phase_main(dev, card: str) -> dict[str, int]:
     variant = dict(n_features=2, n_layers=3, J=2, gru=True, compat_reference=True)
     vparams = _flax_variables(common.build_model(
         _main_cfg("cpu", **variant), "regression", F_in), 8)
-    outs = {}
-    for device, batch in ((dev, vb), ("cpu", vb_cpu)):
-        m = common.build_model(_main_cfg(str(device), **variant), "regression",
-                               F_in)
-        m.load_state_dict(convert.dense_variables_from_flax(vparams))
-        m.to(device).train()
-        with torch.no_grad():
-            out = m(batch)
-            outs[str(device)] = (out, m.state_dict(), m.eval()(batch))
-    card_out, cpu_out = outs[str(dev)], outs["cpu"]
-    pred_err = _rel_err(card_out[0], cpu_out[0])
-    stat_err = max(_rel_err(card_out[1][k], v)
-                   for k, v in cpu_out[1].items() if k.endswith((".mean", ".std")))
-    eval_err = _rel_err(card_out[2], cpu_out[2])
+    card_out, cpu_out = (
+        _forwards(common.build_model(_main_cfg(str(device), **variant),
+                                     "regression", F_in), vparams, batch)
+        for device, batch in ((dev, vb), ("cpu", vb_cpu)))
+    pred_err, stat_err, eval_err = _forward_errs(card_out, cpu_out)
     print(f"  GNNSimple L=3 h=2 J=2 gru compat=reference on that batch, card vs "
           f"CPU: train-mode forward max err / max |pred| {pred_err:.3e}, BN "
           f"running stats {stat_err:.3e}, eval forward {eval_err:.3e} "
@@ -1187,10 +1212,8 @@ def phase_main(dev, card: str) -> dict[str, int]:
     for dtype in (None, torch.bfloat16):
         m = models.GNNSimple(in_features=F_in, n_features=1, n_layers=15, J=1,
                              dtype=dtype)
-        m.load_state_dict(convert.dense_variables_from_flax(params))
-        m.to(dev).train()
-        with torch.no_grad():
-            outs[dtype] = (m(tb), list(m.buffers()))
+        out, stats, _ = _forwards(m, params, tb)
+        outs[dtype] = (out, list(stats.values()))
     out32, (out16, bufs16) = outs[None][0], outs[torch.bfloat16]
     scale = float(out32.abs().mean())
     dev_max = float((out16 - out32).abs().max()) / scale
@@ -1205,6 +1228,126 @@ def phase_main(dev, card: str) -> dict[str, int]:
           f"{out16.dtype}, BN stats {bufs16[0].dtype} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("GNNSimple: the bf16 path is off")
+
+    _step_times(cfg, params, card, records)
+    return launches
+
+
+def phase_lggnn(dev, card: str) -> dict[str, int]:
+    """Train GNNLineGraph(L=5, h=1, J=1, order 2) through run_experiment on
+    the card (``dev``) and hold it to the CPU. Returns each kernel's
+    launches in that run (the path has none)."""
+    from hgnn2_torch.cli import common
+    from hgnn2_torch.data import batching, qm9, synthetic
+    from hgnn2_torch.nn import models
+    from hgnn2_torch.nn.bundles import DenseBundle
+    from hgnn2_torch.nn.layers import CompatConfig
+
+    records = qm9.synthetic_qm9_like(N_MAIN_MOLS, seed=0)  # as run_experiment's
+    F_in = records[0].x.shape[1]
+    lg = dict(arch="lggnn", n_layers=5, order=2)
+    cfg = _main_cfg(str(dev), os.path.join(OUT_DIR, "train_lggnn"), **lg)
+    params = _flax_variables(common.build_model(cfg, "regression", F_in), 9)
+    n_train = int(0.8 * N_MAIN_MOLS)
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, history = common.run_experiment(cfg, init_params=params)  # the main path
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    losses = [(row["train_loss"], row["valid_loss"], row["test_loss"])
+              for row in history]
+    print(f"  GNNLineGraph L=5 h=1 J=1 order 2: run_experiment, {TRAIN_EPOCHS} "
+          f"epochs x {n_train // MAIN_BS} steps of {MAIN_BS} molecules, "
+          f"{secs:.2f} s host clock on {card} (data generation, line graphs "
+          f"and batch builds included); (train, valid, test) loss per epoch "
+          f"{losses}; launches of K1-K5 {launches} (the path runs none)")
+    finite = all(np.isfinite(v) for row in history for v in row.values())
+    if len(history) != TRAIN_EPOCHS or not finite:
+        raise AssertionError(f"GNNLineGraph: training history not finite: {history}")
+    if not isinstance(model, models.GNNLineGraph):
+        raise AssertionError(f"run_experiment built a {type(model).__name__}")
+    if any(launches.values()):
+        raise AssertionError(f"GNNLineGraph launched a CCN or ring kernel: {launches}")
+
+    # as in phase 6: a cv1/cv2 bias that only shifts what BN subtracts has
+    # a rounding-level gradient, held against GRAD_FLOOR x the model's max
+    _compare_steps("GNNLineGraph L=5 h=1 J=1 order 2", cfg, params, records,
+                   dev, grad_floor=GRAD_FLOOR)
+
+    # eval-mode predictions of the trained model on the first valid batch
+    valid = synthetic.split_80_10_10(records, seed=0)[1]
+    vb = next(iter(batching.DenseLoader(valid, MAIN_BS, task=0,
+                                        with_line_graph=True, device=dev)))
+    vb_cpu = vb.to("cpu")
+    cpu_model = common.build_model(_main_cfg("cpu", **lg), "regression", F_in)
+    cpu_model.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        err = _rel_err(model.eval()(vb), cpu_model.eval()(vb_cpu))
+    shape = f"N={vb.x.shape[1]}, M={vb.lg_src.shape[1]}"
+    print(f"  GNNLineGraph L=5 eval predictions on a valid batch of "
+          f"{int(vb_cpu.n_nodes.gt(0).sum())} molecules ({shape}), card vs "
+          f"CPU: max err / max |pred| {err:.3e} (tolerance {SERVE_RTOL})")
+    if err > SERVE_RTOL:
+        raise AssertionError("GNNLineGraph: card and CPU eval predictions disagree")
+
+    # the other update orders, J=2, the fused operators and the reference
+    # compat flags on the same batch, forward only
+    for order in (1, 3):
+        def build(fused):
+            return models.GNNLineGraph(
+                in_features=F_in, n_features=2, n_layers=3, J=2, order=order,
+                compat=CompatConfig.reference(), fused_ops=fused)
+        vparams = _flax_variables(build(False), 10 + order)
+        card_fused = _forwards(build(True), vparams, vb)
+        cpu_fused = _forwards(build(True), vparams, vb_cpu)
+        card_plain = _forwards(build(False), vparams, vb)
+        errs = _forward_errs(card_fused, cpu_fused) + _forward_errs(card_fused,
+                                                                    card_plain)
+        print(f"  GNNLineGraph L=3 h=2 J=2 order {order} fused_ops compat="
+              f"reference on that batch: card vs CPU train-mode forward max "
+              f"err / max |pred| {errs[0]:.3e}, BN running stats {errs[1]:.3e}, "
+              f"eval forward {errs[2]:.3e}; fused vs unfused on the card "
+              f"{errs[3]:.3e}, {errs[4]:.3e}, {errs[5]:.3e} (tolerance "
+              f"{SERVE_RTOL})")
+        if max(errs) > SERVE_RTOL:
+            raise AssertionError(f"GNNLineGraph order {order}: forwards disagree")
+
+    # bf16 compute: lg_graph_op within bf16's rounding of its inputs and
+    # output (2^-7 of max |value|); the whole L=5 model reported
+    tb = next(iter(batching.DenseLoader(synthetic.split_80_10_10(records)[0],
+                                        MAIN_BS, task=0, with_line_graph=True,
+                                        device=dev)))
+    xl = torch.randn(tb.lg_w.shape + (2,), device=dev,
+                     generator=torch.Generator(dev).manual_seed(0))
+    g32 = DenseBundle.from_batch(tb, 1, with_line_graph=True).lg_graph_op(xl)
+    g16 = DenseBundle.from_batch(tb, 1, with_line_graph=True,
+                                 dtype=torch.bfloat16).lg_graph_op(xl.bfloat16())
+    op_err = _rel_err(g16.float(), g32)
+    outs = {}
+    for dtype in (None, torch.bfloat16):
+        m = models.GNNLineGraph(in_features=F_in, n_features=1, n_layers=5, J=1,
+                                order=2, dtype=dtype)
+        out, stats, _ = _forwards(m, params, tb)
+        outs[dtype] = (out, list(stats.values()))
+    out32, (out16, bufs16) = outs[None][0], outs[torch.bfloat16]
+    scale = float(out32.abs().mean())
+    dev_max = float((out16 - out32).abs().max()) / scale
+    dev_mean = float((out16 - out32).abs().mean()) / scale
+    ok = (op_err <= 2 ** -7 and g16.dtype == torch.bfloat16
+          and out16.dtype == torch.float32 and bool(torch.isfinite(out16).all())
+          and all(b.dtype == torch.float32 for b in bufs16))
+    print(f"  bf16 lg_graph_op on a train batch (N={tb.x.shape[1]}, "
+          f"M={tb.lg_src.shape[1]}, F=2) vs f32: max err / max |value| "
+          f"{op_err:.3e} (tolerance 2^-7); GNNLineGraph L=5 bf16 vs f32 "
+          f"train-mode forward: max err {dev_max:.3e}, mean err {dev_mean:.3e} "
+          f"of mean |f32 output| (reported); output {out16.dtype}, BN stats "
+          f"{bufs16[0].dtype} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("GNNLineGraph: the bf16 path is off")
 
     _step_times(cfg, params, card, records)
     return launches
@@ -1254,8 +1397,12 @@ def main() -> None:
 
     print("phase 6: main path (GNNSimple dense training)")
     main_path = phase_main(dev, card)
+
+    print("phase 7: line-graph GNN (GNNLineGraph dense training)")
+    lggnn = phase_lggnn(dev, card)
     for key, row in rows.items():  # launches of the main paths' runs
-        row["launches"] = served[key] + trained[key] + packed[key] + main_path[key]
+        row["launches"] = (served[key] + trained[key] + packed[key]
+                           + main_path[key] + lggnn[key])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "ms_in_run", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps(floor))

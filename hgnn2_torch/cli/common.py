@@ -1,10 +1,11 @@
 """Shared experiment runner behind the CLI entry points (counterpart of
 hgnn2_tpu/cli/common.py).
 
-So far it trains the power GNN (GNNSimple over dense batches) and the
-CCN models on the synthetic QM9-shaped molecules or the collinear-points
-classification set, and builds the packed GNNs for inference
-(build_packed_model). The flags of later slices (--ckpt, --resume, --dp,
+So far it trains the power GNN (GNNSimple over dense batches), the
+line-graph GNN (GNNLineGraph over dense batches with their line graphs)
+and the CCN models on the synthetic QM9-shaped molecules or the
+collinear-points classification set, and builds the packed GNNs for
+inference (build_packed_model). The flags of later slices (--ckpt, --resume, --dp,
 --edge_shards, --packed, --bn_recalib, --data_path) are not accepted;
 config fields of those slices raise in run_experiment or fit.
 """
@@ -68,13 +69,17 @@ def build_model(cfg: TrainConfig, kind: str, n_features: int):
     m = cfg.model
     dim_output = 2 if kind == "classification" else m.dim_output
     gen = torch.Generator().manual_seed(cfg.seed)
+    compat = CompatConfig.reference() if m.compat_reference else CompatConfig()
     if m.arch == "gnn":
-        compat = (CompatConfig.reference() if m.compat_reference
-                  else CompatConfig())
         return models.GNNSimple(
             in_features=n_features, n_features=m.n_features,
             n_layers=m.n_layers, dim_output=dim_output, J=m.J,
             compat=compat, gru=m.gru, generator=gen)
+    if m.arch == "lggnn":
+        return models.GNNLineGraph(
+            in_features=n_features, n_features=m.n_features,
+            n_layers=m.n_layers, dim_output=dim_output, J=m.J,
+            order=m.order, compat=compat, generator=gen)
     kw = dict(n_features=n_features, hidden=m.n_features,
               n_layers=m.n_layers, dim_output=dim_output,
               kernel=bool(m.ccn_kernel), generator=gen)
@@ -107,15 +112,12 @@ def build_packed_model(cfg: TrainConfig, kind: str, n_features: int):
 
 def run_experiment(cfg: TrainConfig, init_params=None):
     """Train cfg's model on cfg.device. init_params: optional weights in
-    the JAX models' flax layout (hgnn2_torch.convert; for gnn the whole
-    variables dict, batch_stats included) to start from in place of the
-    seeded draw. Returns (model, history)."""
+    the JAX models' flax layout (hgnn2_torch.convert; for gnn and lggnn
+    the whole variables dict, batch_stats included) to start from in
+    place of the seeded draw. Returns (model, history)."""
     if cfg.dp != 1 or cfg.edge_shards != 1:
         raise NotImplementedError("--dp/--edge_shards come with the "
                                   "parallel slice")
-    if cfg.model.arch == "lggnn":
-        raise NotImplementedError("the line-graph GNN comes with the "
-                                  "line-graph slice (B)")
     if cfg.model.packed:
         raise NotImplementedError("--packed training comes with the packed "
                                   "slice (D)")
@@ -172,9 +174,14 @@ def run_experiment(cfg: TrainConfig, init_params=None):
         # inner loader shuffles
         redeal = cfg.data.redeal_every if split == "train" else 0
         inner_shuffle = shuffle and (not cfg.data.cache_batches or redeal > 0)
-        loader_cls = batching.CCNLoader if is_ccn else batching.DenseLoader
-        loader = loader_cls(recs, cfg.batch_size, task=task,
-                            shuffle=inner_shuffle, device=dev)
+        if is_ccn:
+            loader = batching.CCNLoader(recs, cfg.batch_size, task=task,
+                                        shuffle=inner_shuffle, device=dev)
+        else:
+            loader = batching.DenseLoader(
+                recs, cfg.batch_size, task=task,
+                with_line_graph=cfg.model.arch == "lggnn",
+                shuffle=inner_shuffle, device=dev)
         if cfg.data.cache_batches:
             loader = batching.CachedLoader(
                 loader, shuffle=shuffle and cfg.data.shuffle_batches,

@@ -1,10 +1,9 @@
-"""The power GNN on the synthetic collinear-points classification task
-(counterpart of hgnn2_tpu/cli/main_generate.py).
+"""The power GNN, or with --lg the line-graph GNN, on the synthetic
+collinear-points classification task (counterpart of
+hgnn2_tpu/cli/main_generate.py).
 
   python -m hgnn2_torch.cli.main_generate --n 1000 --Nmax 50 --L 4 --h 4
-  python -m hgnn2_torch.cli.main_generate --n 200 --L 3 --h 2 --device cpu
-
---lg (the line-graph GNN) raises until the line-graph slice lands.
+  python -m hgnn2_torch.cli.main_generate --lg --update 3 --n 200 --L 3 --h 2 --device cpu
 """
 
 from hgnn2_torch.cli import common

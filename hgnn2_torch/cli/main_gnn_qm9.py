@@ -1,14 +1,14 @@
-"""The power GNN on QM9-shaped molecules (counterpart of
-hgnn2_tpu/cli/main_gnn_qm9.py): the main path, GNNSimple over cached
-dense batches.
+"""The power GNN or the line-graph GNN on QM9-shaped molecules
+(counterpart of hgnn2_tpu/cli/main_gnn_qm9.py): GNNSimple, or with --lg
+GNNLineGraph (update order --update 1/2/3), over cached dense batches.
 
   python -m hgnn2_torch.cli.main_gnn_qm9 --L 15 --h 1 --bs 2048 --epochs 20
+  python -m hgnn2_torch.cli.main_gnn_qm9 --lg --update 2 --L 5 --h 1 --J 1 --bs 2048
   python -m hgnn2_torch.cli.main_gnn_qm9 --L 3 --h 2 --bs 64 --device cpu
 
 With no QM9 files ported yet, the synthetic QM9-shaped molecules stand in,
 as in the JAX entry point without a data path; --sp and --pc are stored
-for the data-ingestion slice. --lg (the line-graph GNN) raises until the
-line-graph slice lands.
+for the data-ingestion slice.
 """
 
 from hgnn2_torch.cli import common

@@ -1,9 +1,9 @@
-"""Static bucketed batching for the dense power GNN and the CCN models
-(counterpart of hgnn2_tpu/data/batching.py; the packed loader comes with
-the packed-training slice).
+"""Static bucketed batching for the dense power and line-graph GNNs and
+the CCN models (counterpart of hgnn2_tpu/data/batching.py; the packed
+loader comes with the packed-training slice).
 
-Every batch is padded to a node or vertex-capacity bucket and to a fixed
-graph count, so the number of distinct batch shapes stays small;
+Every batch is padded to a node (and, with line graphs, a directed-edge)
+bucket or a vertex-capacity bucket and to a fixed graph count, so the number of distinct batch shapes stays small;
 graph-count padding appends empty graphs that the loss ignores. Batches
 are built on the host with numpy and moved to the loader's device once.
 """
@@ -21,6 +21,7 @@ from hgnn2_torch.graphs import GraphRecord, pad_to_bucket
 from hgnn2_torch.nn import ccn as ccn_mod
 
 DEFAULT_NODE_BUCKETS = (16, 32, 64, 128)
+DEFAULT_EDGE_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
 
 
 @dataclasses.dataclass
@@ -31,13 +32,15 @@ class DenseLoader:
     shuffle permutes the records with numpy's default_rng(seed + epoch)
     each epoch; sort=True then orders them by node count (a stable sort,
     so equal sizes keep the shuffled order), which groups graphs of
-    similar size into the same batches. Line-graph batches come with the
-    line-graph slice."""
+    similar size into the same batches. with_line_graph adds the directed
+    line graphs, padded to the edge bucket of the batch's most edges."""
 
     records: Sequence[GraphRecord]
     batch_size: int
     task: int | None = None
+    with_line_graph: bool = False
     node_buckets: Sequence[int] = DEFAULT_NODE_BUCKETS
+    edge_buckets: Sequence[int] = DEFAULT_EDGE_BUCKETS
     sort: bool = True
     shuffle: bool = False
     seed: int = 0
@@ -57,9 +60,14 @@ class DenseLoader:
             chunk = [self.records[i] for i in idx[s : s + self.batch_size]]
             n_bucket = pad_to_bucket(max(r.n_nodes for r in chunk),
                                      self.node_buckets)
+            m_bucket = (pad_to_bucket(max(r.n_dir_edges for r in chunk),
+                                      self.edge_buckets)
+                        if self.with_line_graph else None)
             yield graphs.make_dense_batch(
-                chunk, n_max=n_bucket, batch_size=self.batch_size,
-                task=self.task, device=self.device)
+                chunk, n_max=n_bucket, m_max=m_bucket,
+                with_line_graph=self.with_line_graph,
+                batch_size=self.batch_size, task=self.task,
+                device=self.device)
 
     def __len__(self) -> int:
         return (len(self.records) + self.batch_size - 1) // self.batch_size

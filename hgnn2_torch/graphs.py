@@ -1,6 +1,7 @@
 """Graph containers (counterpart of hgnn2_tpu/graphs.py): the host-side
 record, with its memoized max degree and line graph, the dense batch of
-the power GNN and the packed batch of the segment-sum models.
+the power and line-graph GNNs and the packed batch of the segment-sum
+models.
 
 Both batches are assembled with numpy on the host and copied to the
 device once; their arrays equal the JAX package's bit for bit.
@@ -64,8 +65,12 @@ class DenseGraphBatch:
     node_mask: (B, N) float32 1.0 for real nodes
     y:         (B,) float32 targets or (B,) int labels
     n_nodes:   (B,) int32 (0 for batch-size padding graphs)
-
-    The line-graph fields of the JAX batch come with the line-graph slice.
+    Line-graph fields (None when not built):
+    lg_src/lg_dst: (B, M) int32 endpoints of directed edges (0 at padding)
+    lg_w:      (B, M) float32 edge weights (0 at padding)
+    lg_rev:    (B, M) int32 reverse-edge index (0 at padding)
+    edge_mask: (B, M) float32 1.0 for real directed edges
+    n_edges:   (B,) int32 directed edge counts
     """
 
     x: torch.Tensor
@@ -73,6 +78,12 @@ class DenseGraphBatch:
     node_mask: torch.Tensor
     y: torch.Tensor
     n_nodes: torch.Tensor
+    lg_src: torch.Tensor | None = None
+    lg_dst: torch.Tensor | None = None
+    lg_w: torch.Tensor | None = None
+    lg_rev: torch.Tensor | None = None
+    edge_mask: torch.Tensor | None = None
+    n_edges: torch.Tensor | None = None
 
     @property
     def batch_size(self) -> int:
@@ -80,16 +91,19 @@ class DenseGraphBatch:
 
     @property
     def has_line_graph(self) -> bool:
-        return False
+        return self.lg_src is not None
 
     def to(self, device) -> "DenseGraphBatch":
-        return DenseGraphBatch(**{f.name: getattr(self, f.name).to(device)
-                                  for f in dataclasses.fields(self)})
+        fields = {f.name: getattr(self, f.name)
+                  for f in dataclasses.fields(self)}
+        return DenseGraphBatch(**{k: None if v is None else v.to(device)
+                                  for k, v in fields.items()})
 
 
 def make_dense_batch(
     records: Sequence[GraphRecord],
     n_max: int | None = None,
+    m_max: int | None = None,
     with_line_graph: bool = False,
     batch_size: int | None = None,
     task: int | None = None,
@@ -99,11 +113,9 @@ def make_dense_batch(
     batch to ``device`` (default cuda) once.
 
     batch_size pads the graph axis with all-zero graphs (node_mask 0);
-    task selects one target column. Line-graph fields come with the
-    line-graph slice: with_line_graph=True raises."""
-    if with_line_graph:
-        raise NotImplementedError(
-            "dense line-graph batches come with the line-graph slice (B)")
+    task selects one target column. with_line_graph adds each record's
+    directed line graph, padded to m_max edges (default: the most in the
+    batch)."""
     dev = resolve_device(device)
     bs = len(records)
     B = batch_size or bs
@@ -126,8 +138,32 @@ def make_dense_batch(
         y = y.astype(np.float32)
     y = np.concatenate([y, np.zeros((B - bs,) + y.shape[1:], y.dtype)])
     arrays = dict(x=x, adj=adj, node_mask=node_mask, y=y, n_nodes=n_nodes)
+    if with_line_graph:
+        arrays.update(_line_graph_arrays(records, B, m_max))
     return DenseGraphBatch(
         **{k: torch.from_numpy(v).to(dev) for k, v in arrays.items()})
+
+
+def _line_graph_arrays(records: Sequence[GraphRecord], B: int,
+                       m_max: int | None) -> dict[str, np.ndarray]:
+    """The line-graph fields of a dense batch, padded to (B, M) with zeros."""
+    lgs = [r.line_graph() for r in records]
+    M = m_max or max(lg.num_edges for lg in lgs)
+    out = dict(lg_src=np.zeros((B, M), np.int32),
+               lg_dst=np.zeros((B, M), np.int32),
+               lg_w=np.zeros((B, M), np.float32),
+               lg_rev=np.zeros((B, M), np.int32),
+               edge_mask=np.zeros((B, M), np.float32),
+               n_edges=np.zeros((B,), np.int32))
+    for i, lg in enumerate(lgs):
+        m = lg.num_edges
+        out["lg_src"][i, :m] = lg.src
+        out["lg_dst"][i, :m] = lg.dst
+        out["lg_w"][i, :m] = lg.w
+        out["lg_rev"][i, :m] = lg.rev
+        out["edge_mask"][i, :m] = 1.0
+        out["n_edges"][i] = m
+    return out
 
 
 @dataclasses.dataclass

@@ -1,9 +1,10 @@
 """GNN layers (counterpart of hgnn2_tpu/nn/layers.py): the initializer,
 the compat flags, the padding-aware batch norm, the per-graph spatial
-normalization, the GRU update and the power GNN's layers over an operator
-bundle. The line-graph layers come with the line-graph slice.
+normalization, the GRU update, and the power and line-graph GNNs' layers
+over an operator bundle.
 
-Submodules carry the flax names (cv1, cv2, gru.ih, gru.hh, bn, fc), so
+Submodules carry the flax names (cv1, cv2, gru.ih, gru.hh, bn, fc;
+node_cv1, edge_bn... in the line-graph layers), so
 hgnn2_torch.convert maps weights one to one. Parameters and BN statistics
 stay float32; a layer's ``dtype`` (bf16 mixed precision) is the dtype its
 Linear layers compute in, as flax's Dense(dtype=...).
@@ -42,6 +43,19 @@ def _dense(lin: nn.Linear, x: torch.Tensor,
     the (f32) weights, as flax's Dense computes."""
     dt = dtype or torch.promote_types(x.dtype, lin.weight.dtype)
     return F.linear(x.to(dt), lin.weight.to(dt), lin.bias.to(dt))
+
+
+def pair_conv(cv1: nn.Linear, cv2: nn.Linear, x1: torch.Tensor,
+              relu_second: bool, dtype: torch.dtype | None = None
+              ) -> torch.Tensor:
+    """concat([cv2(x1), relu(cv1(x1))]), cv2 through a ReLU too iff
+    relu_second: the two convolutions of every GNN layer, concatenated in
+    the original layers' order (cv2, cv1)."""
+    a = torch.relu(_dense(cv1, x1, dtype))
+    b = _dense(cv2, x1, dtype)
+    if relu_second:
+        b = torch.relu(b)
+    return torch.cat([b, a], dim=-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,9 +186,7 @@ class PowerLayer(nn.Module):
     def forward(self, bundle, x: torch.Tensor,
                 mask: torch.Tensor) -> torch.Tensor:
         x1 = bundle.graph_op(x)
-        a = torch.relu(_dense(self.cv1, x1, self.dtype))
-        b = torch.relu(_dense(self.cv2, x1, self.dtype))
-        z = torch.cat([b, a], dim=-1)
+        z = pair_conv(self.cv1, self.cv2, x1, True, self.dtype)
         if self.gru is not None:
             z = self.gru(x1, z)
         return self.bn(z, mask)
@@ -196,6 +208,108 @@ class ReadoutLayer(nn.Module):
     def forward(self, bundle, x: torch.Tensor,
                 mask: torch.Tensor) -> torch.Tensor:
         y = _dense(self.fc, bundle.graph_op(x), self.dtype)
+        if self.compat.mask_readout_bias:
+            y = y * mask[..., None]
+        return y.float().sum(dim=1)
+
+
+class LGLayer(nn.Module):
+    """One line-graph GNN iteration over node state x (B, N, x_width) and
+    edge state xl (B, M, xl_width). order selects the update schedule:
+      1: node update first, the edge update sees the new node state;
+      2: edge update first (on the old x), the node update sees the new
+         edge state;
+      3: both read the previous states.
+    Node input [graph_op(x) | Pm e | Pd e], edge input [lg_graph_op(xl) |
+    Pm^T n | Pd^T n], e and n the states the schedule wires in; each
+    update is BN(concat([cv2, relu(cv1)])), node BN over the node mask and
+    edge BN over the edge mask. The fan-ins follow from the order."""
+
+    def __init__(self, x_width: int, xl_width: int, features_out: int,
+                 J: int = 1, order: int = 1,
+                 compat: CompatConfig = CompatConfig(),
+                 dtype: torch.dtype | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if order not in (1, 2, 3):
+            raise ValueError(f"order must be 1, 2 or 3; got {order}")
+        self.order, self.dtype = order, dtype
+        state = 2 * features_out
+        node_edge_w = state if order == 2 else xl_width
+        edge_node_w = state if order == 1 else x_width
+        for prefix, fan_in in (
+                ("node_", (J + 2) * x_width + 2 * node_edge_w),
+                ("edge_", (J + 2) * xl_width + 2 * edge_node_w)):
+            self.add_module(f"{prefix}cv1", ref_linear(fan_in, features_out,
+                                                       generator))
+            self.add_module(f"{prefix}cv2", ref_linear(fan_in, features_out,
+                                                       generator))
+            self.add_module(f"{prefix}bn", MaskedBatchNorm(
+                state, compat=compat, generator=generator))
+
+    def _pair(self, prefix: str, x1: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+        z = pair_conv(getattr(self, f"{prefix}cv1"),
+                      getattr(self, f"{prefix}cv2"), x1, False, self.dtype)
+        return getattr(self, f"{prefix}bn")(z, mask)
+
+    def forward(self, bundle, x: torch.Tensor, xl: torch.Tensor,
+                mask: torch.Tensor, edge_mask: torch.Tensor,
+                fused_bundle=None) -> tuple[torch.Tensor, torch.Tensor]:
+        fb = fused_bundle
+        if fb is None:
+            xa = bundle.graph_op(x)
+            xda = bundle.lg_graph_op(xl)
+
+        def node_update(edge_state):
+            if fb is not None:
+                x1 = fb.node_input(x, edge_state)
+            else:
+                x1 = torch.cat([xa, bundle.pm(edge_state),
+                                bundle.pd(edge_state)], dim=-1)
+            return self._pair("node_", x1, mask)
+
+        def edge_update(node_state):
+            if fb is not None:
+                xd1 = fb.edge_input(node_state, xl)
+            else:
+                xd1 = torch.cat([xda, bundle.pm_t(node_state),
+                                 bundle.pd_t(node_state)], dim=-1)
+            return self._pair("edge_", xd1, edge_mask)
+
+        if self.order == 1:
+            z = node_update(xl)
+            zl = edge_update(z)
+        elif self.order == 2:
+            zl = edge_update(x)
+            z = node_update(zl)
+        else:
+            z = node_update(xl)
+            zl = edge_update(x)
+        return z, zl
+
+
+class LGReadoutLayer(nn.Module):
+    """Line-graph readout: sum over nodes of fc([graph_op(x) | Pm xl |
+    Pd xl]), in f32, the bias masked to the real nodes unless compat turns
+    that off."""
+
+    def __init__(self, fan_in: int, features_out: int,
+                 compat: CompatConfig = CompatConfig(),
+                 dtype: torch.dtype | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.compat, self.dtype = compat, dtype
+        self.fc = ref_linear(fan_in, features_out, generator)
+
+    def forward(self, bundle, x: torch.Tensor, xl: torch.Tensor,
+                mask: torch.Tensor, fused_bundle=None) -> torch.Tensor:
+        if fused_bundle is not None:
+            x1 = fused_bundle.node_input(x, xl)
+        else:
+            x1 = torch.cat([bundle.graph_op(x), bundle.pm(xl), bundle.pd(xl)],
+                           dim=-1)
+        y = _dense(self.fc, x1, self.dtype)
         if self.compat.mask_readout_bias:
             y = y * mask[..., None]
         return y.float().sum(dim=1)

@@ -1,12 +1,12 @@
-"""GNN models over dense batches (counterpart of hgnn2_tpu/nn/models.py).
+"""GNN models over dense batches (counterpart of hgnn2_tpu/nn/models.py):
+the power GNN and the line-graph (edge-dual) GNN.
 
-GNNSimple, the power GNN, is layer0 (input width) + (n_layers - 2)
-middle layers + a readout, with widths [(J+2) in -> h], [(J+2) 2h -> h],
-[(J+2) 2h -> out]. Submodules carry the flax names (``layer{i}``,
-``layerlast``), so hgnn2_torch.convert maps the nested flax trees one to
-one. Train mode is ``module.train()``: batch norm then uses batch
-statistics and updates its running ones. The line-graph GNN comes with
-the line-graph slice.
+Each is layer0 (input width) + (n_layers - 2) middle layers + a readout,
+with hidden widths [in -> h], [2h -> h], [2h -> out]. Submodules carry
+the flax names (``layer{i}``, ``layerlast``; ``node_cv1``, ``edge_bn``...
+inside a line-graph layer), so hgnn2_torch.convert maps the nested flax
+trees one to one. Train mode is ``module.train()``: batch norm then uses
+batch statistics and updates its running ones.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from torch import nn
 
 from hgnn2_torch.graphs import DenseGraphBatch
 from hgnn2_torch.nn import layers
-from hgnn2_torch.nn.bundles import DenseBundle
+from hgnn2_torch.nn.bundles import DenseBundle, FusedLGBundle
 from hgnn2_torch.nn.layers import CompatConfig
 
 
@@ -54,3 +54,55 @@ class GNNSimple(nn.Module):
         for i in range(self.n_layers - 1):
             x = getattr(self, f"layer{i}")(bundle, x, mask)
         return self.layerlast(bundle, x, mask)
+
+
+class GNNLineGraph(nn.Module):
+    """GNN on the graph and its non-backtracking line graph.
+
+    order selects the node/edge update schedule (1: node first, 2: edge
+    first, 3: simultaneous). in_features is the node feature width; the
+    edge state starts as the NB degrees (width 1). dtype=torch.bfloat16
+    computes in bf16 while the parameters, the BN statistics and the
+    readout sum stay f32. fused_ops builds a FusedLGBundle per batch and
+    runs each update's operators as one matmul (the same math)."""
+
+    def __init__(self, in_features: int, n_features: int, n_layers: int,
+                 dim_output: int = 1, J: int = 1, order: int = 1,
+                 compat: CompatConfig = CompatConfig(),
+                 dtype: torch.dtype | None = None, fused_ops: bool = False,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.n_features, self.n_layers = n_features, n_layers
+        self.dim_output, self.J, self.order = dim_output, J, order
+        self.dtype, self.fused_ops = dtype, fused_ops
+        # layer0 is built even at n_layers = 1, as the flax model builds it
+        self.n_lg_layers = max(n_layers - 1, 1)
+        xw, xlw = in_features, 1
+        for i in range(self.n_lg_layers):
+            self.add_module(f"layer{i}", layers.LGLayer(
+                xw, xlw, n_features, J=J, order=order, compat=compat,
+                dtype=dtype, generator=generator))
+            xw = xlw = 2 * n_features
+        self.layerlast = layers.LGReadoutLayer(
+            (J + 2) * xw + 2 * xlw, dim_output, compat, dtype=dtype,
+            generator=generator)
+
+    def forward(self, batch: DenseGraphBatch, bundle=None) -> torch.Tensor:
+        """bundle: an operator bundle to use in place of the batch's own
+        DenseBundle (a MaterializedBundle in the tests)."""
+        if bundle is None:
+            bundle = DenseBundle.from_batch(batch, self.J, with_line_graph=True,
+                                            dtype=self.dtype)
+        fb = FusedLGBundle.from_dense(bundle) if self.fused_ops else None
+        x, mask = batch.x, batch.node_mask
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        edge_mask = batch.edge_mask
+        if edge_mask is None:
+            edge_mask = torch.ones(bundle.w.shape, dtype=x.dtype,
+                                   device=x.device)
+        xl = bundle.edge_features().to(x.dtype)
+        for i in range(self.n_lg_layers):
+            x, xl = getattr(self, f"layer{i}")(bundle, x, xl, mask, edge_mask,
+                                               fused_bundle=fb)
+        return self.layerlast(bundle, x, xl, mask, fused_bundle=fb)

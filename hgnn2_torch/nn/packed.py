@@ -19,7 +19,8 @@ import torch
 from torch import nn
 
 from hgnn2_torch.graphs import PackedGraphBatch
-from hgnn2_torch.nn.layers import CompatConfig, MaskedBatchNorm, ref_linear
+from hgnn2_torch.nn.layers import (CompatConfig, MaskedBatchNorm, pair_conv,
+                                   ref_linear)
 from hgnn2_torch.ops import sparse
 
 
@@ -76,13 +77,9 @@ class _PackedBase(nn.Module):
             generator=generator))
 
     def _apply_pair(self, prefix: str, x1, mask, relu_second: bool):
-        """BN(concat([cv2(x1), relu(cv1(x1))])): the concat order (cv2,
-        cv1) of the original layers."""
-        a = torch.relu(getattr(self, f"{prefix}cv1")(x1))
-        b = getattr(self, f"{prefix}cv2")(x1)
-        if relu_second:
-            b = torch.relu(b)
-        z = torch.cat([b, a], dim=-1)
+        """BN(pair_conv(x1)) over the flat node or edge axis."""
+        z = pair_conv(getattr(self, f"{prefix}cv1"),
+                      getattr(self, f"{prefix}cv2"), x1, relu_second)
         return getattr(self, f"{prefix}bn")(z[None], mask[None])[0]
 
     def _readout(self, x1, pb: PackedGraphBatch) -> torch.Tensor:

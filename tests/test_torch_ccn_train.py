@@ -347,7 +347,7 @@ def test_run_experiment_refuses_configs_of_later_slices(tmp_path, change):
         cfg.dp = 2
     elif change == "dataset":
         cfg.data.dataset, cfg.data.data_path = "qm9", str(tmp_path / "qm9.npz")
-    else:
-        cfg.model.arch = "lggnn"
+    else:  # packed training comes with a later slice
+        cfg.model.arch, cfg.model.packed = "gnn", True
     with pytest.raises(NotImplementedError):
         common.run_experiment(cfg)

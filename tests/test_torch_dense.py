@@ -27,6 +27,7 @@ from hgnn2_tpu import graphs as jgraphs
 from hgnn2_tpu.data import batching as jbatching
 from hgnn2_tpu.data import qm9 as jqm9
 from hgnn2_tpu.data import synthetic as jsynthetic
+from hgnn2_tpu.nn import bundles as jbundles
 from hgnn2_tpu.nn import layers as jlayers
 from hgnn2_tpu.nn import models as jmodels
 from hgnn2_tpu.ops import dense as jdense
@@ -42,6 +43,7 @@ torch.set_num_threads(2)
 OP_TOL = dict(atol=1e-6, rtol=1e-6)
 MODEL_TOL = dict(atol=1e-5, rtol=1e-5)
 DB_FIELDS = ("x", "adj", "node_mask", "y", "n_nodes")
+LG_FIELDS = ("lg_src", "lg_dst", "lg_w", "lg_rev", "edge_mask", "n_edges")
 
 
 def _np(tree):
@@ -80,9 +82,14 @@ def test_make_dense_batch_bit_equal(dense_batch, data):
     _assert_bit_equal(db, jdb)
     moved = db.to("cpu")
     assert all(torch.equal(getattr(moved, f), getattr(db, f)) for f in DB_FIELDS)
-    with pytest.raises(NotImplementedError, match="line-graph"):
-        graphs.make_dense_batch(qm9.synthetic_qm9_like(2), with_line_graph=True,
-                                device="cpu")
+    lgb = graphs.make_dense_batch(qm9.synthetic_qm9_like(2), with_line_graph=True,
+                                  device="cpu")
+    jlgb = jgraphs.make_dense_batch(jqm9.synthetic_qm9_like(2), with_line_graph=True)
+    assert lgb.has_line_graph and jlgb.has_line_graph
+    for name in DB_FIELDS + LG_FIELDS:
+        got, want = getattr(lgb, name).numpy(), np.asarray(getattr(jlgb, name))
+        assert got.dtype == want.dtype, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
 
 
 def test_three_collinear_points_matches_jax():
@@ -141,8 +148,17 @@ def test_graph_op_matches_jax(dense_batch, J, rng):
     bundle = DenseBundle.from_batch(db, J)
     np.testing.assert_allclose(bundle.graph_op(torch.from_numpy(x)).numpy(),
                                got.numpy(), **OP_TOL)
-    with pytest.raises(NotImplementedError, match="line-graph"):
-        bundle.lg_graph_op(torch.from_numpy(x))
+    # the line-graph side of the bundle on the same molecules
+    kw = dict(n_max=32, with_line_graph=True, batch_size=16, task=0)
+    lgb = DenseBundle.from_batch(graphs.make_dense_batch(
+        qm9.synthetic_qm9_like(12, seed=4), device="cpu", **kw), J,
+        with_line_graph=True)
+    jlgb = jbundles.DenseBundle.from_batch(jgraphs.make_dense_batch(
+        jqm9.synthetic_qm9_like(12, seed=4), **kw), J, with_line_graph=True)
+    xl = rng.standard_normal(lgb.w.shape + (3,)).astype(np.float32)
+    np.testing.assert_allclose(lgb.lg_graph_op(torch.from_numpy(xl)).numpy(),
+                               np.asarray(jlgb.lg_graph_op(jnp.asarray(xl))),
+                               **OP_TOL)
 
 
 def test_gru_update_and_spatial_normalization_match_jax(rng):

@@ -227,9 +227,15 @@ def test_main_generate_matches_jax_main(tmp_path, monkeypatch):
 
 
 def test_main_gnn_qm9_refuses_the_line_graph_gnn(tmp_path):
-    with pytest.raises(NotImplementedError, match="line-graph"):
-        main_gnn_qm9.main(["--lg", "--device", "cpu", "--n_synthetic", "8",
-                           "--log_path", str(tmp_path)])
+    """Named for the refusal it held before the line-graph GNN was ported:
+    --lg now trains a GNNLineGraph on the CPU (tests/test_torch_lggnn_train.py
+    holds such runs to JAX's)."""
+    model, history = main_gnn_qm9.main(
+        ["--lg", "--update", "2", "--L", "3", "--h", "1", "--bs", "8",
+         "--epochs", "1", "--device", "cpu", "--n_synthetic", "16",
+         "--log_path", str(tmp_path)])
+    assert isinstance(model, models.GNNLineGraph) and model.order == 2
+    assert len(history) == 1 and np.isfinite(history[0]["train_loss"])
 
 
 def test_bench_torch_runs_on_cpu():
