@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Training throughput of the PyTorch port's dense GNNs on 107,108
-QM9-shaped synthetic molecules at batch 2,048, on one CUDA card (the
-port's counterpart of bench.py): by default the main path, the power GNN
+"""Training throughput of the PyTorch port's GNNs on 107,108 QM9-shaped
+synthetic molecules at batch 2,048, on one CUDA card (the port's
+counterpart of bench.py): by default the main path, the power GNN
 GNNSimple (L=15, h=1, J=1); with --arch lggnn the line-graph GNN
 GNNLineGraph (L=5, h=1, J=1, update order 2), bench_epoch.py's lggnn_L5.
+--layout packed trains their packed twins PackedGNN and PackedLGGNN over
+PackedLoader batches instead (bench_epoch.py's gnn_L15_packed and
+lggnn_L5_packed).
 
     python3 bench_torch.py                  # on the card
     python3 bench_torch.py --arch lggnn     # the line-graph GNN
+    python3 bench_torch.py --layout packed --arch lggnn
     python3 bench_torch.py --device cpu --molecules 300 --batch 64
 
 The pipeline is the CLI's default: CachedLoader(DenseLoader(sort=True),
-with line graphs for lggnn)
-batches resident on the device, epochs visited in the JAX package's
+with line graphs for lggnn, or PackedLoader(sort=True) at one uniform
+capacity) batches resident on the device, epochs visited in the JAX package's
 scanned-epoch order (training.train.groups_in_order: shape groups and
 their members shuffled by one default_rng(0)), Adamax at lr 3e-4, a
 fresh batch every step, and each epoch's metrics fetched to the host
@@ -26,7 +30,7 @@ steps on one batch, after a warm-up run.
 Float32 matmuls run without TF32, so the card computes what the CPU
 computes. Prints exactly one JSON line on stdout (bench.py's keys less
 the baseline ratios, plus the card's name and power limit and the TF32
-setting, and the arch); logs go to stderr.
+setting, the arch and the layout); logs go to stderr.
 """
 
 from __future__ import annotations
@@ -40,9 +44,9 @@ import time
 import numpy as np
 import torch
 
-from hgnn2_torch import resolve_device
+from hgnn2_torch import resolve_device, runtime
 from hgnn2_torch.data import batching, qm9, stats
-from hgnn2_torch.nn import models
+from hgnn2_torch.nn import models, packed
 from hgnn2_torch.training import train
 from hgnn2_torch.training.config import OptimConfig
 from hgnn2_torch.training.optim import build_optimizer
@@ -77,13 +81,13 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--device", default="cuda")
     p.add_argument("--arch", choices=("gnn", "lggnn"), default="gnn")
+    p.add_argument("--layout", choices=("dense", "packed"), default="dense")
     p.add_argument("--molecules", type=int, default=MOLECULES)
     p.add_argument("--batch", type=int, default=BATCH)
     p.add_argument("--epochs", type=int, default=EPOCHS)
     args = p.parse_args(argv)
     dev = resolve_device(args.device)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    runtime.setup()
 
     t0 = time.time()
     records = qm9.synthetic_qm9_like(args.molecules, seed=0)
@@ -91,27 +95,31 @@ def main(argv=None) -> dict:
     mean, std = float(ts.mean[0]), float(ts.std[0])
     log(f"data: {args.molecules} molecules ({time.time() - t0:.1f}s)")
 
-    loader = batching.CachedLoader(
-        batching.DenseLoader(records, args.batch, task=0, sort=True,
-                             with_line_graph=args.arch == "lggnn",
-                             device=dev),
-        shuffle=True, seed=0)
+    if args.layout == "packed":
+        inner = batching.PackedLoader(records, args.batch, task=0, sort=True,
+                                      device=dev)
+    else:
+        inner = batching.DenseLoader(records, args.batch, task=0, sort=True,
+                                     with_line_graph=args.arch == "lggnn",
+                                     device=dev)
+    loader = batching.CachedLoader(inner, shuffle=True, seed=0)
     t0 = time.time()
     loader.materialize()
     _sync(dev)
     log(f"built {len(loader)} batches in {time.time() - t0:.1f}s")
 
     gen = torch.Generator().manual_seed(0)
-    if args.arch == "lggnn":
-        n_layers = 5
-        model = models.GNNLineGraph(in_features=records[0].x.shape[1],
-                                    n_features=1, n_layers=n_layers, J=1,
-                                    order=2, generator=gen)
+    F_in = records[0].x.shape[1]
+    n_layers = 5 if args.arch == "lggnn" else 15
+    kw = dict(n_features=1, n_layers=n_layers, J=1, generator=gen)
+    if args.layout == "packed" and args.arch == "lggnn":
+        model = packed.PackedLGGNN(in_features=F_in, order=2, **kw)
+    elif args.layout == "packed":
+        model = packed.PackedGNN(in_features=F_in, **kw)
+    elif args.arch == "lggnn":
+        model = models.GNNLineGraph(in_features=F_in, order=2, **kw)
     else:
-        n_layers = 15
-        model = models.GNNSimple(in_features=records[0].x.shape[1],
-                                 n_features=1, n_layers=n_layers, J=1,
-                                 generator=gen)
+        model = models.GNNSimple(in_features=F_in, **kw)
     model.to(dev)
     opt, sched = build_optimizer(OptimConfig(optim="adamax", lr=3e-4),
                                  len(loader), model.parameters())
@@ -153,9 +161,11 @@ def main(argv=None) -> dict:
     ub_mol_per_s = args.batch * UB_RUNS * UB_STEPS / (time.time() - t0)
     log(f"upper bound (one resident batch): {ub_mol_per_s:,.1f} molecules/s")
 
+    layout = "_packed" if args.layout == "packed" else ""
     result = {
-        "metric": f"{args.arch}_qm9_L{n_layers}_train_throughput_end_to_end",
+        "metric": f"{args.arch}_qm9_L{n_layers}{layout}_train_throughput_end_to_end",
         "arch": args.arch,
+        "layout": args.layout,
         "value": mol_per_s,
         "unit": "molecules/s",
         "epoch_s": epoch_s,

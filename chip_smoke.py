@@ -72,13 +72,25 @@ Phases, each of which raises on failure (nothing is caught):
               orders 1 and 3, fused_ops and the reference compat flags on
               that batch, card vs CPU and fused vs unfused on the card;
               bf16 lg_graph_op against f32 (the L=5 model's bf16
-              deviation is printed); time a step as phase 6 does.
+              deviation is printed); time a step as phase 6 does;
+  8. packed   packed training (--packed), which runs no hand-written
+     train    kernel: train PackedGNN(L=15, h=1, J=1), then
+              PackedLGGNN(L=5, h=1, J=1, update order 2), through
+              cli.common.run_experiment on the card (the same molecules,
+              2,048 a step, 2 epochs) from seeded flax-layout weights;
+              check finite losses, the first steps, step-0 gradients and
+              BN running stats, and eval predictions on a valid batch
+              against the CPU; PackedGNN's run writes a checkpoint every
+              epoch: restore the latest on the CPU (bit for bit), then
+              resume for one more epoch with --bn_recalib on the card and
+              on the CPU and hold the two histories to each other; time a
+              step as phase 6 does.
 
 The last three lines are JSON: the launch floor, each kernel, and
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 
-Float32 matmuls run without TF32 (set below) so that Linear layers on the
-card compute what they compute on the CPU.
+Float32 matmuls run without TF32 (runtime.setup) so that Linear layers
+on the card compute what they compute on the CPU.
 """
 
 from __future__ import annotations
@@ -95,8 +107,6 @@ import time
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-F32_OPS_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
 TOL = dict(rtol=1e-5, atol=1e-5)  # kernel vs plain: f32 sums, other order
 # gradient through a kernel pair vs autograd through the plain path:
 # f32 sums of up to K^3 terms per entry in another order, so the error
@@ -111,6 +121,12 @@ TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-4  # times the largest |gradient| of each tensor
 GRAD_FLOOR = 1e-2  # GNNSimple: least gradient scale, x the model's max
 BN_STATS_RTOL = 1e-4  # card vs CPU BN running stats, times max |stat|
+# card vs CPU valid/test metrics of a whole epoch: a bias that only shifts
+# what BN subtracts has a rounding-level gradient, which Adamax turns into
+# steps of about lr with the rounding's sign, and eval-mode BN's running
+# mean does not cancel that walk (measured 8.8e-4 to 1.5e-3 on PackedGNN's
+# resumed epoch)
+EVAL_RTOL = 5e-3
 BF16_RTOL = 0.05  # bf16 vs f32 output, times mean |f32 output|
 N_TRAIN_MOLS = 5120  # 4,096 train, 512 valid, 512 test
 TRAIN_BS = 1024
@@ -206,8 +222,18 @@ def phase_floor() -> dict[str, float]:
 
 
 def _bound(n_bytes: int, n_ops: int) -> tuple[float, str]:
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    """The least time for n_bytes over the card's HBM and n_ops f32
+    operations outside the tensor cores, at the data-sheet peaks of
+    hgnn2_torch.profiling."""
+    from hgnn2_torch import profiling
+
+    hbm = profiling.chip_peak_hbm_bytes_per_s()
+    f32 = profiling.chip_peak_flops("float32")
+    if hbm is None or f32 is None:
+        raise RuntimeError(f"no data-sheet peaks for "
+                           f"{torch.cuda.get_device_name()}")
+    t_bytes = n_bytes / hbm * 1e3
+    t_ops = n_ops / f32 * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -701,7 +727,8 @@ def _train_setup(cfg, params, device, records):
     """The model (for CCN: kernels on where use_kernel says so) from the
     flax params, the optimizer, the train batches in deal order, mean and
     std: the pieces of run_experiment's first epoch, on ``device``, with
-    the loader and the converter of cfg's arch."""
+    the loader, the model constructor and the converter of cfg's arch and
+    layout."""
     from hgnn2_torch import convert
     from hgnn2_torch.cli import common
     from hgnn2_torch.data import batching, stats, synthetic
@@ -710,7 +737,13 @@ def _train_setup(cfg, params, device, records):
 
     ts = stats.compute_target_stats(records)
     train_recs = synthetic.split_80_10_10(records, seed=cfg.seed)[0]
-    if cfg.model.arch in ("gnn", "lggnn"):
+    build = common.build_model
+    if cfg.model.arch in ("gnn", "lggnn") and cfg.model.packed:
+        loader = batching.PackedLoader(train_recs, cfg.batch_size, task=0,
+                                       device=device)
+        state = convert.packed_variables_from_flax(params)
+        build = common.build_packed_model
+    elif cfg.model.arch in ("gnn", "lggnn"):
         loader = batching.DenseLoader(
             train_recs, cfg.batch_size, task=0,
             with_line_graph=cfg.model.arch == "lggnn", device=device)
@@ -721,7 +754,7 @@ def _train_setup(cfg, params, device, records):
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, ccn_kernel=ccn_fused.use_kernel(loader.k_max, device)))
         state = convert.ccn_params_from_flax(params)
-    model = common.build_model(cfg, "regression", records[0].x.shape[1])
+    model = build(cfg, "regression", records[0].x.shape[1])
     model.load_state_dict(state)
     model.to(device)
     opt, sched = optim.build_optimizer(cfg.optim, len(loader), model.parameters())
@@ -862,7 +895,8 @@ def _step_times(cfg, params, card: str, records) -> None:
     kernels = _kernels_by_part({name: lambda part=part: part(batches[0])
                                 for name, part in parts.items()})
     host_ms = secs / len(batches) * 1e3
-    label = f"{cfg.model.arch} L={cfg.model.n_layers} h={cfg.model.n_features}"
+    label = (f"{'packed ' if cfg.model.packed else ''}{cfg.model.arch} "
+             f"L={cfg.model.n_layers} h={cfg.model.n_features}")
     print(f"  {label}: set-up {setup_s:.3f} s (host clock: target stats, "
           f"{len(batches)} train batches built and copied, model)")
     print(f"  {label}: {len(batches)} steps of {cfg.batch_size} molecules in "
@@ -1353,6 +1387,143 @@ def phase_lggnn(dev, card: str) -> dict[str, int]:
     return launches
 
 
+def _checkpoint_resume(name: str, cfg, params, model, F_in: int,
+                       steps: int) -> None:
+    """The checkpoint the card's run wrote after its last epoch, restored
+    on the CPU: model, optimizer and schedule, the model bit for bit with
+    the card's. Then one more epoch from it with --bn_recalib and
+    --no_scan, so that its batches come through the trainer's prefetch
+    thread, on the card and on the CPU (each from its own copy of the
+    checkpoint), held to each other."""
+    from hgnn2_torch.cli import common
+    from hgnn2_torch.training import optim
+    from hgnn2_torch.training.checkpoint import Checkpointer
+
+    ckpt = Checkpointer(cfg.checkpoint_path)
+    cpu_cfg = dataclasses.replace(cfg, device="cpu")
+    cpu_model = common.build_packed_model(cpu_cfg, "regression", F_in)
+    opt, sched = optim.build_optimizer(cfg.optim, steps, cpu_model.parameters())
+    epoch = ckpt.restore(cpu_model, opt, sched)
+    card_state = {k: v.cpu() for k, v in model.state_dict().items()}
+    bit_equal = all(torch.equal(card_state[k], v)
+                    for k, v in cpu_model.state_dict().items())
+    moments = sum(torch.is_tensor(v) and v.device.type == "cpu"
+                  for st in opt.state.values() for v in st.values())
+    print(f"  {name}: checkpoints {ckpt.all_steps()} written on the card; the "
+          f"latest restored on the CPU: epoch {epoch}, schedule count "
+          f"{sched.last_epoch}, {moments} optimizer tensors on the CPU, model "
+          f"bit-equal to the card's {bit_equal}")
+    if (epoch != TRAIN_EPOCHS or sched.last_epoch != TRAIN_EPOCHS * steps
+            or not bit_equal or not moments):
+        raise AssertionError(f"{name}: the card's checkpoint did not restore "
+                             "on the CPU")
+
+    cpu_dir = cfg.checkpoint_path + "_cpu"
+    shutil.rmtree(cpu_dir, ignore_errors=True)
+    shutil.copytree(cfg.checkpoint_path, cpu_dir)
+    card, cpu = (common.run_experiment(dataclasses.replace(
+        cfg, device=device, epochs=TRAIN_EPOCHS + 1, resume=True,
+        bn_recalibrate=True, scan_epochs=False, checkpoint_path=path,
+        log_path=os.path.join(OUT_DIR, f"resume_{where}")),
+        init_params=params)[1]
+        for where, device, path in (("card", cfg.device, cfg.checkpoint_path),
+                                    ("cpu", "cpu", cpu_dir)))
+    keys = [k for k in cpu[0] if k != "epoch_time_s"]
+    errs = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(card, cpu))
+            for k in keys}
+    train_err = max(v for k, v in errs.items() if k.startswith("train_"))
+    eval_err = max(v for k, v in errs.items() if not k.startswith("train_"))
+    rows_ok = (len(card) == len(cpu) == 2 and card[1].get("bn_recalibrated")
+               == cpu[1].get("bn_recalibrated") == 1.0
+               and Checkpointer(cfg.checkpoint_path).latest_step()
+               == TRAIN_EPOCHS + 1)
+    print(f"  {name}: resumed for epoch {TRAIN_EPOCHS + 1} with --bn_recalib "
+          f"and --no_scan (stepwise, through prefetch), card vs CPU: train metrics max rel err {train_err:.3e} (tolerance "
+          f"{TRAIN_LOSS_RTOL}), valid/test metrics of the epoch and of the "
+          f"recalibrated row {eval_err:.3e} (tolerance {EVAL_RTOL}); rows "
+          f"{'ok' if rows_ok else 'FAIL'}")
+    if not rows_ok or train_err > TRAIN_LOSS_RTOL or eval_err > EVAL_RTOL:
+        raise AssertionError(f"{name}: the resumed runs disagree")
+
+
+def phase_packed_train(dev, card: str) -> dict[str, int]:
+    """Train PackedGNN(L=15, h=1, J=1), then PackedLGGNN(L=5, h=1, J=1,
+    order 2), through run_experiment with --packed on the card (``dev``)
+    and hold each to the CPU; PackedGNN's run also writes checkpoints,
+    restored on the CPU and resumed with --bn_recalib. Returns each
+    kernel's launches in the two runs (the path has none)."""
+    from hgnn2_torch.cli import common
+    from hgnn2_torch.data import batching, qm9, synthetic
+
+    records = qm9.synthetic_qm9_like(N_MAIN_MOLS, seed=0)  # as run_experiment's
+    F_in = records[0].x.shape[1]
+    valid = synthetic.split_80_10_10(records, seed=0)[1]
+    n_train = int(0.8 * N_MAIN_MOLS)
+    counters = _counters()
+    launches = dict.fromkeys(counters, 0)
+    for name, model_kw, seed in (
+            ("PackedGNN L=15 h=1 J=1", {}, 11),
+            ("PackedLGGNN L=5 h=1 J=1 order 2",
+             dict(arch="lggnn", n_layers=5, order=2), 12)):
+        cfg = _main_cfg(str(dev), os.path.join(OUT_DIR, f"train_packed{seed}"),
+                        packed=True, **model_kw)
+        if seed == 11:
+            cfg.checkpoint_path = os.path.join(OUT_DIR, "ckpt_packed")
+            shutil.rmtree(cfg.checkpoint_path, ignore_errors=True)
+        params = _flax_variables(
+            common.build_packed_model(cfg, "regression", F_in), seed)
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, history = common.run_experiment(cfg, init_params=params)  # the main path
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {k: c.launches for k, c in counters.items()}
+        for k, n in got.items():
+            launches[k] += n
+        losses = [(row["train_loss"], row["valid_loss"], row["test_loss"])
+                  for row in history]
+        print(f"  {name}: run_experiment --packed, {TRAIN_EPOCHS} epochs x "
+              f"{n_train // MAIN_BS} steps of {MAIN_BS} molecules, {secs:.2f} s "
+              f"host clock on {card} (data generation and batch builds "
+              f"included); (train, valid, test) loss per epoch {losses}; "
+              f"launches of K1-K5 {got} (the path runs none)")
+        finite = all(np.isfinite(v) for row in history for v in row.values())
+        if len(history) != TRAIN_EPOCHS or not finite:
+            raise AssertionError(f"{name}: training history not finite: {history}")
+        want_type = "PackedLGGNN" if model_kw else "PackedGNN"
+        if type(model).__name__ != want_type:
+            raise AssertionError(f"run_experiment built a {type(model).__name__}")
+        if any(got.values()):
+            raise AssertionError(f"{name} launched a CCN or ring kernel: {got}")
+
+        # as in phases 6 and 7: a bias that only shifts what BN subtracts
+        # has a rounding-level gradient, held against GRAD_FLOOR x the max
+        _compare_steps(name, cfg, params, records, dev, grad_floor=GRAD_FLOOR)
+
+        # eval-mode predictions of the trained model on the first valid batch
+        vb = next(iter(batching.PackedLoader(valid, MAIN_BS, task=0, device=dev)))
+        vb_cpu = vb.to("cpu")
+        cpu_model = common.build_packed_model(
+            dataclasses.replace(cfg, device="cpu"), "regression", F_in)
+        cpu_model.load_state_dict(model.state_dict())
+        with torch.no_grad():
+            err = _rel_err(model.eval()(vb), cpu_model.eval()(vb_cpu))
+        print(f"  {name} eval predictions on a valid batch of "
+              f"{int(vb_cpu.gmask.sum())} molecules (V={vb.num_node_slots}, "
+              f"C={vb.num_edge_slots}), card vs CPU: max err / max |pred| "
+              f"{err:.3e} (tolerance {SERVE_RTOL})")
+        if err > SERVE_RTOL:
+            raise AssertionError(f"{name}: card and CPU eval predictions disagree")
+
+        if cfg.checkpoint_path:
+            _checkpoint_resume(name, cfg, params, model, F_in,
+                               -(-n_train // MAIN_BS))
+        _step_times(cfg, params, card, records)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -1361,9 +1532,10 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0])
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from hgnn2_torch import runtime
     from hgnn2_torch.ops import cuda_build
+
+    runtime.setup()
 
     dev = torch.device("cuda")
     card = torch.cuda.get_device_name(0)
@@ -1400,9 +1572,12 @@ def main() -> None:
 
     print("phase 7: line-graph GNN (GNNLineGraph dense training)")
     lggnn = phase_lggnn(dev, card)
+
+    print("phase 8: packed training (--packed) and the trainer's extras")
+    packed_train = phase_packed_train(dev, card)
     for key, row in rows.items():  # launches of the main paths' runs
         row["launches"] = (served[key] + trained[key] + packed[key]
-                           + main_path[key] + lggnn[key])
+                           + main_path[key] + lggnn[key] + packed_train[key])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "ms_in_run", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps(floor))

@@ -1,13 +1,15 @@
 """Shared experiment runner behind the CLI entry points (counterpart of
 hgnn2_tpu/cli/common.py).
 
-So far it trains the power GNN (GNNSimple over dense batches), the
-line-graph GNN (GNNLineGraph over dense batches with their line graphs)
-and the CCN models on the synthetic QM9-shaped molecules or the
-collinear-points classification set, and builds the packed GNNs for
-inference (build_packed_model). The flags of later slices (--ckpt, --resume, --dp,
---edge_shards, --packed, --bn_recalib, --data_path) are not accepted;
-config fields of those slices raise in run_experiment or fit.
+It trains the power GNN (GNNSimple over dense batches), the line-graph
+GNN (GNNLineGraph over dense batches with their line graphs), with
+--packed their packed segment-sum twins (PackedGNN, PackedLGGNN over
+PackedLoader batches), and the CCN models, on the synthetic QM9-shaped
+molecules or the collinear-points classification set; --ckpt saves a
+checkpoint every epoch, --resume goes on from the latest, --bn_recalib
+re-estimates the BN statistics after training. The flags of later slices
+(--dp, --edge_shards, --data_path) are not accepted; config fields of
+those slices raise in run_experiment or fit.
 """
 
 from __future__ import annotations
@@ -19,13 +21,14 @@ import time
 
 import torch
 
-from hgnn2_torch import convert, resolve_device
+from hgnn2_torch import convert, resolve_device, runtime
 from hgnn2_torch.data import batching, qm9, stats, synthetic
 from hgnn2_torch.nn import ccn as ccn_mod
 from hgnn2_torch.nn import models
 from hgnn2_torch.nn import packed as packed_mod
 from hgnn2_torch.nn.layers import CompatConfig
 from hgnn2_torch.ops import ccn_fused
+from hgnn2_torch.training import checkpoint as ckpt_lib
 from hgnn2_torch.training import metrics as metrics_lib
 from hgnn2_torch.training import train as train_lib
 from hgnn2_torch.training.config import TrainConfig
@@ -95,8 +98,9 @@ def build_model(cfg: TrainConfig, kind: str, n_features: int):
 def build_packed_model(cfg: TrainConfig, kind: str, n_features: int):
     """The packed segment-sum twin of cfg.model (gnn or lggnn) for inputs
     of n_features channels, its weights drawn from cfg.seed. Run it over
-    a PackedGraphBatch, on one device or with an edge-partitioned operator
-    bundle (parallel.spmd.partitioned_packed_ops)."""
+    a PackedGraphBatch, on one device (run_experiment with --packed
+    trains it) or with an edge-partitioned operator bundle
+    (parallel.spmd.partitioned_packed_ops)."""
     m = cfg.model
     dim_output = 2 if kind == "classification" else m.dim_output
     compat = CompatConfig.reference() if m.compat_reference else CompatConfig()
@@ -112,15 +116,19 @@ def build_packed_model(cfg: TrainConfig, kind: str, n_features: int):
 
 def run_experiment(cfg: TrainConfig, init_params=None):
     """Train cfg's model on cfg.device. init_params: optional weights in
-    the JAX models' flax layout (hgnn2_torch.convert; for gnn and lggnn
-    the whole variables dict, batch_stats included) to start from in
-    place of the seeded draw. Returns (model, history)."""
+    the JAX models' flax layout (hgnn2_torch.convert; for gnn and lggnn,
+    dense or packed, the whole variables dict, batch_stats included) to
+    start from in place of the seeded draw. Returns (model, history)."""
+    runtime.setup()
+    use_packed = cfg.model.packed and cfg.model.arch in ("gnn", "lggnn")
+    if use_packed and cfg.dp > 1:
+        raise ValueError(
+            "--packed batches have flat node/edge leading axes that --dp "
+            "cannot shard batch-wise; scale packed models with "
+            "--edge_shards (molecule-aligned sharding)")
     if cfg.dp != 1 or cfg.edge_shards != 1:
         raise NotImplementedError("--dp/--edge_shards come with the "
                                   "parallel slice")
-    if cfg.model.packed:
-        raise NotImplementedError("--packed training comes with the packed "
-                                  "slice (D)")
     logging.basicConfig(level=logging.INFO, force=True)
     logging.getLogger("hgnn2_torch").setLevel(logging.INFO)
     dev = resolve_device(cfg.device)
@@ -146,6 +154,9 @@ def run_experiment(cfg: TrainConfig, init_params=None):
     logger.write_settings(cfg)
     if tstats is not None:
         tstats.save(os.path.join(logger.log_dir, TARGET_STATS_FILE))
+        if cfg.checkpoint_path:
+            os.makedirs(cfg.checkpoint_path, exist_ok=True)
+            tstats.save(os.path.join(cfg.checkpoint_path, TARGET_STATS_FILE))
 
     is_ccn = cfg.model.arch in ("ccn1d", "ccn2d")
     if is_ccn and cfg.model.ccn_kernel is None:
@@ -155,10 +166,13 @@ def run_experiment(cfg: TrainConfig, init_params=None):
             log.info("%s: fused CUDA kernels enabled (K=%d); "
                      "--no_ccn_kernel for the plain path", cfg.model.arch,
                      k_max)
-    model = build_model(cfg, kind, records[0].x.shape[1])
+    n_features = records[0].x.shape[1]
+    model = (build_packed_model(cfg, kind, n_features) if use_packed
+             else build_model(cfg, kind, n_features))
     if init_params is not None:
         model.load_state_dict(
             convert.ccn_params_from_flax(init_params) if is_ccn
+            else convert.packed_variables_from_flax(init_params) if use_packed
             else convert.dense_variables_from_flax(init_params))
     model.to(dev)
 
@@ -177,6 +191,9 @@ def run_experiment(cfg: TrainConfig, init_params=None):
         if is_ccn:
             loader = batching.CCNLoader(recs, cfg.batch_size, task=task,
                                         shuffle=inner_shuffle, device=dev)
+        elif use_packed:
+            loader = batching.PackedLoader(recs, cfg.batch_size, task=task,
+                                           shuffle=inner_shuffle, device=dev)
         else:
             loader = batching.DenseLoader(
                 recs, cfg.batch_size, task=task,
@@ -188,9 +205,11 @@ def run_experiment(cfg: TrainConfig, init_params=None):
                 seed=cfg.seed, redeal_every=redeal)
         return loader
 
+    checkpointer = (ckpt_lib.Checkpointer(cfg.checkpoint_path)
+                    if cfg.checkpoint_path else None)
     model, history = train_lib.fit(model, make_loader, cfg, kind=kind,
                                    mean=mean, std=std, accuracy=accuracy,
-                                   logger=logger)
+                                   logger=logger, checkpointer=checkpointer)
     if history:
         logger.log_final(**history[-1])
         log.info("final: %s", {k: round(v, 4) for k, v in history[-1].items()})
@@ -203,6 +222,10 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu for the plain PyTorch path")
     p.add_argument("--log_path", default=None)
+    p.add_argument("--ckpt", dest="checkpoint_path", default=None,
+                   help="save a checkpoint here after every epoch")
+    p.add_argument("--resume", action="store_true",
+                   help="go on from the latest checkpoint under --ckpt")
     p.add_argument("--bs", dest="batch_size", type=int, default=30)
     p.add_argument("--epochs", dest="max_epoch", type=int, default=40)
     p.add_argument("--step", dest="epoch_step", type=int, default=5)
@@ -232,8 +255,15 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                         "CUDA when K <= 8)")
     p.add_argument("--no_ccn_kernel", action="store_false",
                    dest="ccn_kernel", help="force the plain PyTorch path")
+    p.add_argument("--bn_recalib", action="store_true",
+                   help="after training, re-estimate the BN running stats "
+                        "as the average over all train batches and re-run "
+                        "the final eval (an appended row)")
     p.add_argument("--gru", action="store_true",
                    help="gnn: gated node-state update in every layer")
+    p.add_argument("--packed", action="store_true",
+                   help="gnn/lggnn: train the packed segment-sum model "
+                        "(flat node/edge arrays and int32 edge indices)")
     return p
 
 
@@ -244,6 +274,8 @@ def config_from_args(args, arch: str, dataset: str) -> TrainConfig:
     cfg.epochs = args.max_epoch
     cfg.seed = args.seed
     cfg.log_path = args.log_path
+    cfg.checkpoint_path = args.checkpoint_path
+    cfg.resume = args.resume
     cfg.optim.optim = args.optim
     cfg.optim.lr = args.lr
     cfg.optim.lr_damping = args.lrdamping
@@ -256,10 +288,12 @@ def config_from_args(args, arch: str, dataset: str) -> TrainConfig:
     cfg.model.compat_reference = args.compat_reference
     cfg.model.gru = args.gru
     cfg.model.ccn_kernel = args.ccn_kernel
+    cfg.model.packed = args.packed
     cfg.data.dataset = dataset
     cfg.data.task = args.task
     cfg.data.shuffle_split = args.shuffle
     cfg.data.cache_batches = not args.no_cache
     cfg.data.redeal_every = args.redeal_every
     cfg.scan_epochs = not args.no_scan
+    cfg.bn_recalibrate = args.bn_recalib
     return cfg

@@ -1,9 +1,11 @@
-"""Static bucketed batching for the dense power and line-graph GNNs and
-the CCN models (counterpart of hgnn2_tpu/data/batching.py; the packed
-loader comes with the packed-training slice).
+"""Static bucketed batching for the dense power and line-graph GNNs, the
+packed GNNs and the CCN models (counterpart of
+hgnn2_tpu/data/batching.py).
 
 Every batch is padded to a node (and, with line graphs, a directed-edge)
-bucket or a vertex-capacity bucket and to a fixed graph count, so the number of distinct batch shapes stays small;
+bucket, to packed node and edge capacities or to a vertex-capacity
+bucket, and to a fixed graph count, so the number of distinct batch
+shapes stays small;
 graph-count padding appends empty graphs that the loss ignores. Batches
 are built on the host with numpy and moved to the loader's device once.
 """
@@ -141,6 +143,64 @@ class CachedLoader:
         if self._batches is not None:
             return len(self._batches)
         return len(self.inner)
+
+
+# capacity ladder for packed batches: steps of about 1.06x, so a few
+# shapes cover a run while padding stays under 6 %
+_PACKED_BUCKETS = tuple(sorted({
+    (1 << k) * m // 16 for k in range(4, 26) for m in range(16, 32)
+}))
+
+
+@dataclasses.dataclass
+class PackedLoader:
+    """Yields PackedGraphBatch objects (flat node and edge arrays with
+    segment ids) padded to capacities of the _PACKED_BUCKETS ladder and
+    to batch_size graphs, on ``device`` (default cuda): the layout of the
+    packed models (nn/packed.py PackedGNN, PackedLGGNN). An operator
+    reads int32 indices, 4 bytes an edge, where the dense line-graph path
+    multiplies by one-hot scatter matrices.
+
+    shuffle and sort as DenseLoader's. uniform_caps (default) gives every
+    batch of an epoch the one (node, edge) capacity of its largest batch,
+    so a split is one shape group (training.train.group_batches);
+    uniform_caps=False buckets each batch's own load. Compose with
+    CachedLoader like DenseLoader."""
+
+    records: Sequence[GraphRecord]
+    batch_size: int
+    task: int | None = None
+    sort: bool = True
+    shuffle: bool = False
+    seed: int = 0
+    uniform_caps: bool = True
+    device: str | torch.device | None = None
+    _epoch: int = 0
+
+    def __iter__(self) -> Iterator[graphs.PackedGraphBatch]:
+        idx = np.arange(len(self.records))
+        if self.shuffle:
+            rng = np.random.default_rng(self.seed + self._epoch)
+            rng.shuffle(idx)
+            self._epoch += 1
+        if self.sort:
+            sizes = np.array([self.records[i].n_nodes for i in idx])
+            idx = idx[np.argsort(sizes, kind="stable")]
+        chunks = [[self.records[i] for i in idx[s : s + self.batch_size]]
+                  for s in range(0, len(idx), self.batch_size)]
+        caps = [(sum(r.n_nodes for r in c), sum(r.n_dir_edges for r in c))
+                for c in chunks]
+        if self.uniform_caps and caps:
+            caps = [(max(v for v, _ in caps), max(e for _, e in caps))] * len(caps)
+        for chunk, (v, e) in zip(chunks, caps):
+            yield graphs.make_packed_batch(
+                chunk, node_capacity=pad_to_bucket(v, _PACKED_BUCKETS),
+                edge_capacity=pad_to_bucket(e, _PACKED_BUCKETS),
+                task=self.task, batch_size=self.batch_size,
+                device=self.device)
+
+    def __len__(self) -> int:
+        return (len(self.records) + self.batch_size - 1) // self.batch_size
 
 
 VERTEX_BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384)

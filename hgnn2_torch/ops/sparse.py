@@ -5,6 +5,8 @@ Every segment sum is ``index_add_`` into a zero block, as the JAX package
 leaves XLA's segment_sum outside any Pallas kernel. On CUDA, index_add_
 accumulates with atomics, so the sum order (and the last bits) can change
 from run to run. Index arrays are int32, as the batches hold them.
+Every gather is ``gather`` (index_select), whose gradient is an
+index_add_ as well.
 """
 
 from __future__ import annotations
@@ -20,10 +22,20 @@ def segment_sum(vals: torch.Tensor, idx: torch.Tensor,
     return out.index_add_(0, idx, vals)
 
 
+def gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[idx] along the first axis. Its gradient is index_add_, one
+    atomic an element on CUDA. x[idx] with a tensor index would have
+    index_put_'s gradient instead, which sorts the indices and adds each
+    run of equal indices serially in one warp: every padded edge of a
+    packed batch points at node V - 1, so a batch padded to its epoch's
+    uniform capacity holds runs of thousands."""
+    return x.index_select(0, idx)
+
+
 def spmm(src, dst, w, x: torch.Tensor, num_nodes: int) -> torch.Tensor:
     """(A @ X)[i] = sum_{e: src(e)=i} w(e) X[dst(e)]; x (V, F) -> (V, F).
     Padded edges carry w = 0 so they contribute nothing."""
-    return segment_sum(w[:, None] * x[dst], src, num_nodes)
+    return segment_sum(w[:, None] * gather(x, dst), src, num_nodes)
 
 
 def degrees(src, w, num_nodes: int) -> torch.Tensor:
@@ -58,7 +70,7 @@ def nb_apply(src, dst, w, rev, edge_mask, xl: torch.Tensor,
     """Non-backtracking operator: (AL @ XL)[e] = Y[dst(e)] - w(rev(e))
     XL[rev(e)] with Y = segment_sum(w XL, src); xl (C, F) -> (C, F)."""
     y = segment_sum(w[:, None] * xl, src, num_nodes)
-    out = y[dst] - w[rev][:, None] * xl[rev]
+    out = gather(y, dst) - gather(w, rev)[:, None] * gather(xl, rev)
     return out * edge_mask[:, None]
 
 
@@ -91,7 +103,8 @@ def incidence_apply(src, dst, edge_mask, xl: torch.Tensor, num_nodes: int,
 def incidence_t_apply(src, dst, edge_mask, x: torch.Tensor,
                       signed: bool) -> torch.Tensor:
     """Pm^T @ X / Pd^T @ X: node features (V, F) -> edge features (C, F)."""
-    out = x[src] - x[dst] if signed else x[src] + x[dst]
+    a, b = gather(x, src), gather(x, dst)
+    out = a - b if signed else a + b
     return out * edge_mask[:, None]
 
 

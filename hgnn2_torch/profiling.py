@@ -1,0 +1,160 @@
+"""Profiling and roofline accounting (counterpart of
+hgnn2_tpu/profiling.py): a step timer that waits for the device, edges/s
+and bytes/edge accounting for aggregation passes, the card's data-sheet
+peaks, and a torch.profiler trace context.
+
+The scanned-step timer of the JAX package (time_scan_steps) has no
+counterpart until the port has a captured multi-step program.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+import time
+from typing import Callable
+
+import torch
+
+
+@dataclasses.dataclass
+class StepTiming:
+    steps: int
+    total_s: float
+
+    @property
+    def per_step_s(self) -> float:
+        return self.total_s / max(self.steps, 1)
+
+    def throughput(self, items_per_step: float) -> float:
+        return items_per_step * self.steps / self.total_s
+
+
+def _tensors(out):
+    if isinstance(out, torch.Tensor):
+        yield out
+    elif isinstance(out, dict):
+        for v in out.values():
+            yield from _tensors(v)
+    elif isinstance(out, (list, tuple)):
+        for v in out:
+            yield from _tensors(v)
+
+
+def force_sync(out) -> None:
+    """Wait until the devices of every tensor in ``out`` (a tensor or a
+    nested dict, list or tuple of them) have finished their queued work.
+    CUDA kernels run after the call that launches them returns, so a
+    host clock read without this measures the enqueue. CPU tensors need
+    no wait."""
+    for dev in {t.device for t in _tensors(out) if t.device.type == "cuda"}:
+        torch.cuda.synchronize(dev)
+
+
+def time_steps(fn: Callable, *args, steps: int = 20,
+               warmup: int = 2) -> StepTiming:
+    """Host-clock time of ``steps`` calls of fn(*args), after ``warmup``
+    calls, each end waiting for the device (force_sync on the output).
+    Repeating the same arguments measures an upper bound on throughput."""
+    out = None
+    for _ in range(warmup):
+        out = fn(*args)
+    force_sync(out)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        out = fn(*args)
+    force_sync(out)
+    return StepTiming(steps=steps, total_s=time.perf_counter() - t0)
+
+
+@dataclasses.dataclass
+class AggregationRoofline:
+    """Roofline model for one multi-operator aggregation pass."""
+
+    n_edges: int  # real (unpadded) directed edges
+    n_nodes: int
+    feature_dim: int
+    dense_block: tuple | None = None  # (B, N) when dense-block layout
+
+    def flops(self, n_operators: int = 1) -> int:
+        if self.dense_block:
+            b, n = self.dense_block
+            return 2 * b * n * n * self.feature_dim * n_operators
+        return 2 * self.n_edges * self.feature_dim * n_operators
+
+    def bytes_moved(self, dtype_bytes: int = 4) -> int:
+        if self.dense_block:
+            b, n = self.dense_block
+            return dtype_bytes * (b * n * n + 2 * b * n * self.feature_dim)
+        return dtype_bytes * (
+            3 * self.n_edges + 2 * self.n_nodes * self.feature_dim
+        )
+
+    def edges_per_s(self, timing: StepTiming) -> float:
+        return self.n_edges / timing.per_step_s
+
+    def bytes_per_edge(self) -> float:
+        return self.bytes_moved() / max(self.n_edges, 1)
+
+
+# Peaks of the cards the port targets, keyed by a lower-case substring of
+# torch.cuda.get_device_name(). NVIDIA H100 Tensor Core GPU data sheet,
+# SXM part, dense rates without sparsity, at its 700 W limit: bf16 and
+# fp16 989 TFLOP/s, TF32 495, float32 outside the tensor cores 67; HBM3
+# 3.35 TB/s. A card set below 700 W runs slower under load.
+_CARD_PEAK_FLOPS = {
+    "h100 80gb hbm3": {"bfloat16": 989e12, "float16": 989e12,
+                       "tf32": 495e12, "float32": 67e12},
+}
+_CARD_PEAK_HBM = {"h100 80gb hbm3": 3.35e12}
+
+
+def _card_peak(table: dict):
+    if not torch.cuda.is_available():
+        return None
+    name = torch.cuda.get_device_name().lower()
+    return next((v for k, v in table.items() if k in name), None)
+
+
+def chip_peak_flops(dtype: str = "bfloat16") -> float | None:
+    """Peak FLOP/s of the current CUDA card for dtype ('bfloat16',
+    'float16', 'tf32', 'float32'), or None on the CPU and on a card not in
+    the table. MFU = achieved / this."""
+    peaks = _card_peak(_CARD_PEAK_FLOPS)
+    return None if peaks is None else peaks[dtype]
+
+
+def mfu(flops_per_s: float, dtype: str = "bfloat16") -> float | None:
+    """Model-FLOP utilization: achieved FLOP/s over the card's peak."""
+    peak = chip_peak_flops(dtype)
+    return None if peak is None else flops_per_s / peak
+
+
+def chip_peak_hbm_bytes_per_s() -> float | None:
+    """Peak HBM bandwidth of the current CUDA card, or None (CPU,
+    unknown card)."""
+    return _card_peak(_CARD_PEAK_HBM)
+
+
+def hbm_utilization(bytes_per_s: float) -> float | None:
+    """Achieved memory traffic over the card's peak bandwidth, the
+    roofline metric of a bandwidth-bound aggregation pass."""
+    peak = chip_peak_hbm_bytes_per_s()
+    return None if peak is None else bytes_per_s / peak
+
+
+@contextlib.contextmanager
+def trace(log_dir: str = os.path.join("runs", "trace")):
+    """torch.profiler over the block (CPU activity, and CUDA's where there
+    is a card); yields the profiler and writes its chrome trace to
+    log_dir/trace.json at the end."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+    os.makedirs(log_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -25,8 +25,11 @@ import torch
 import torch.nn.functional as F
 
 from hgnn2_torch.training import metrics as metrics_lib
+from hgnn2_torch.training.checkpoint import Checkpointer
 from hgnn2_torch.training.config import TrainConfig
 from hgnn2_torch.training.optim import build_optimizer
+from hgnn2_torch.training.preemption import GracefulShutdown
+from hgnn2_torch.training.prefetch import prefetch
 
 log = logging.getLogger("hgnn2_torch")
 
@@ -143,6 +146,56 @@ def evaluate(model, loader, kind: str = "regression", mean: float = 0.0,
     return {k: v / max(total, 1.0) for k, v in zip(sums, values)}
 
 
+def recalibrate_bn(model: torch.nn.Module, groups=None, loader=None,
+                   momentum: float = 0.1) -> torch.nn.Module:
+    """Replaces the BN running statistics with the average of every
+    train batch's own statistics, then puts the model in eval mode.
+
+    The running statistics are an EMA that weighs the last batch seen by
+    1 - momentum = 90 %, so eval-mode metrics follow whichever batch an
+    epoch ended on; this pass (BN re-estimation) removes that. Each batch
+    runs one no_grad train-mode forward against zeroed running stats, so
+    the update (1 - momentum) * batch + momentum * 0 leaves (1 - momentum)
+    x its own statistics; those are scaled by 1 / (1 - momentum), summed
+    and divided by the batch count, the JAX package's arithmetic.
+
+    groups: lists of batches (fit's shape groups); loader: any iterable
+    of batches. Give one of the two. A model without buffers (no BN) is
+    left as it is."""
+    bufs = dict(model.named_buffers())
+    if not bufs:
+        return model
+    batches = (b for g in groups for b in g) if groups is not None else loader
+    scale = 1.0 / (1.0 - momentum)
+    totals = {k: torch.zeros_like(v) for k, v in bufs.items()}
+    count = 0
+    model.train()
+    with torch.no_grad():
+        for batch in batches:
+            for v in bufs.values():
+                v.zero_()
+            model(batch)
+            for k, v in bufs.items():
+                totals[k] += v * scale
+            count += 1
+        if count:
+            for k, v in bufs.items():
+                v.copy_(totals[k] / count)
+    return model.eval()
+
+
+def _eval_row(row: dict, model, eval_loaders, kind, mean, std, accuracy):
+    """Adds each eval split's metrics (and error ratio) to row."""
+    for split in ("valid", "test"):
+        loader = eval_loaders[split]
+        if loader is None or len(loader) == 0:
+            continue
+        for k, v in evaluate(model, loader, kind, mean, std).items():
+            row[f"{split}_{k}"] = v
+            if k == "mae" and accuracy:
+                row[f"{split}_error_ratio"] = v / accuracy
+
+
 def fit(
     model: torch.nn.Module,
     make_loader,
@@ -152,22 +205,24 @@ def fit(
     std: float = 1.0,
     accuracy: float | None = None,
     logger: metrics_lib.ExperimentLogger | None = None,
-    checkpointer=None,
+    checkpointer: Checkpointer | None = None,
     mesh=None,
 ):
     """Full training run. make_loader(split) -> iterable of batches for
     split in {"train", "valid", "test"} (or None); must yield at least one
     train batch. The model moves to the device of the train batches.
-    Returns (model, history): one dict of metrics per epoch.
+    Returns (model, history): one dict of metrics per epoch run.
 
-    Checkpoints and BN recalibration (slice E) and meshes (slice F) are
-    not ported yet and raise."""
-    if checkpointer is not None or cfg.resume:
-        raise NotImplementedError("checkpoints come with a later slice")
+    checkpointer saves the model, optimizer and schedule after every
+    epoch; with cfg.resume the run starts from its latest checkpoint, at
+    the epoch after it. As in the JAX package, a resumed run's shuffle
+    generator and loader epoch counters start afresh, so its batch order
+    is not that of an uninterrupted run. SIGTERM or SIGINT stops the run
+    after the epoch under way, once it is saved. cfg.bn_recalibrate
+    appends a row evaluated after recalibrate_bn. Meshes (the parallel
+    slice) raise."""
     if mesh is not None:
         raise NotImplementedError("meshes come with the parallel slice")
-    if cfg.bn_recalibrate:
-        raise NotImplementedError("BN recalibration comes with a later slice")
     train_loader = make_loader("train")
     # built once: with CachedLoader the eval batches stay on the device
     eval_loaders = {split: make_loader(split) for split in ("valid", "test")}
@@ -179,6 +234,12 @@ def fit(
     model.to(sample.x.device)
     optimizer, scheduler = build_optimizer(cfg.optim, steps_per_epoch,
                                            model.parameters())
+    start_epoch = 0
+    if checkpointer is not None and cfg.resume:
+        restored = checkpointer.restore(model, optimizer, scheduler)
+        if restored is not None:
+            start_epoch = restored
+            log.info("resumed from the checkpoint of epoch %d", start_epoch)
 
     # order-level shuffling of the grouped epochs; honour the cached
     # loader's shuffle setting (off -> deterministic batch order)
@@ -195,46 +256,59 @@ def fit(
         groups = build_train_groups() or None
         if groups:
             log.info("grouped epochs: %d batch shape group(s)", len(groups))
-    log.info("training: %d epochs x %d steps/epoch", cfg.epochs,
+    log.info("training: %d epochs x %d steps/epoch", cfg.epochs - start_epoch,
              steps_per_epoch)
     run_err = metrics_lib.RunningAverage()
     history = []
-    for epoch in range(cfg.epochs):
-        t0 = time.time()
-        if cfg.optim.reset_each_epoch:
-            # optax's tx.init: fresh moments and a schedule back at count 0
-            optimizer, scheduler = build_optimizer(
-                cfg.optim, steps_per_epoch, model.parameters())
-        if groups is not None:
-            if (getattr(train_loader, "redeal_every", 0)
-                    and train_loader.maybe_redeal()):
-                groups = build_train_groups()
-                log.info("epoch %d: re-dealt batches into %d group(s)",
-                         epoch + 1, len(groups))
-            batches = groups_in_order(groups, shuffle_rng)
-        else:
-            batches = train_loader
-        train_m = run_epoch(model, optimizer, scheduler, batches, kind, mean,
-                            std)
-        if "mae" in train_m:
-            run_err.update(train_m["mae"])
-        row = {f"train_{k}": v for k, v in train_m.items()}
-        if (epoch + 1) % cfg.eval_every == 0:
-            for split in ("valid", "test"):
-                loader = eval_loaders[split]
-                if loader is None or len(loader) == 0:
-                    continue
-                for k, v in evaluate(model, loader, kind, mean, std).items():
-                    row[f"{split}_{k}"] = v
-                    if k == "mae" and accuracy:
-                        row[f"{split}_error_ratio"] = v / accuracy
-        row["epoch_time_s"] = time.time() - t0
-        log.info("epoch %d done in %.1fs: %s", epoch + 1, row["epoch_time_s"],
+    with GracefulShutdown() as shutdown:
+        for epoch in range(start_epoch, cfg.epochs):
+            t0 = time.time()
+            if cfg.optim.reset_each_epoch:
+                # optax's tx.init: fresh moments and a schedule back at 0
+                optimizer, scheduler = build_optimizer(
+                    cfg.optim, steps_per_epoch, model.parameters())
+            if groups is not None:
+                if (getattr(train_loader, "redeal_every", 0)
+                        and train_loader.maybe_redeal()):
+                    groups = build_train_groups()
+                    log.info("epoch %d: re-dealt batches into %d group(s)",
+                             epoch + 1, len(groups))
+                batches = groups_in_order(groups, shuffle_rng)
+            else:  # stepwise: the next batches built while a step runs
+                batches = prefetch(train_loader)
+            train_m = run_epoch(model, optimizer, scheduler, batches, kind,
+                                mean, std)
+            if "mae" in train_m:
+                run_err.update(train_m["mae"])
+            row = {f"train_{k}": v for k, v in train_m.items()}
+            if (epoch + 1) % cfg.eval_every == 0:
+                _eval_row(row, model, eval_loaders, kind, mean, std, accuracy)
+            row["epoch_time_s"] = time.time() - t0
+            log.info("epoch %d done in %.1fs: %s", epoch + 1,
+                     row["epoch_time_s"],
+                     {k: round(v, 4) for k, v in row.items()
+                      if k != "epoch_time_s"})
+            if accuracy and "mae" in train_m:
+                row["train_error_ratio"] = run_err.val / accuracy
+            history.append(row)
+            if logger is not None:
+                logger.log_epoch(epoch + 1, **row)
+            if checkpointer is not None:
+                checkpointer.save(model, optimizer, scheduler, epoch + 1)
+            if shutdown.requested:
+                log.warning("stopping after epoch %d (signal); resume with "
+                            "cfg.resume", epoch + 1)
+                break
+    if cfg.bn_recalibrate and next(model.buffers(), None) is not None:
+        recalibrate_bn(model, groups=groups,
+                       loader=None if groups is not None else train_loader)
+        row = dict(history[-1]) if history else {}
+        _eval_row(row, model, eval_loaders, kind, mean, std, accuracy)
+        row["bn_recalibrated"] = 1.0
+        log.info("bn recalibrated over %d train batches: %s", steps_per_epoch,
                  {k: round(v, 4) for k, v in row.items()
-                  if k != "epoch_time_s"})
-        if accuracy and "mae" in train_m:
-            row["train_error_ratio"] = run_err.val / accuracy
+                  if k.startswith(("valid_", "test_"))})
         history.append(row)
         if logger is not None:
-            logger.log_epoch(epoch + 1, **row)
+            logger.log_epoch(cfg.epochs + 1, **row)
     return model, history

@@ -42,6 +42,7 @@ from hgnn2_torch.cli import common, main_ccn_qm9
 from hgnn2_torch.data import batching, qm9, stats, synthetic
 from hgnn2_torch.nn import ccn
 from hgnn2_torch.training import optim, train
+from hgnn2_torch.training.checkpoint import Checkpointer
 from hgnn2_torch.training.config import OptimConfig, TrainConfig
 
 torch.set_num_threads(2)
@@ -325,16 +326,30 @@ def test_main_ccn_qm9_matches_jax_run_experiment(tmp_path, monkeypatch):
 @pytest.mark.parametrize("field,value", [
     ("checkpointer", object()), ("mesh", object()), ("bn_recalibrate", True),
     ("resume", True)])
-def test_fit_refuses_options_of_later_slices(field, value):
+def test_fit_refuses_options_of_later_slices(tmp_path, field, value):
+    """Named for the refusals it held before the training extras were
+    ported: a mesh still raises (the parallel slice); a checkpointer, BN
+    recalibration and resume now run on a CCN1D, which has no BN, so
+    recalibration appends no row (tests/test_torch_train_extras.py holds
+    each to JAX's)."""
     cfg = TrainConfig(batch_size=4, epochs=1)
-    kwargs = {}
-    if field in ("bn_recalibrate", "resume"):
+    model = ccn.CCN1D(n_features=5, hidden=2, n_layers=1)
+    if field == "mesh":
+        with pytest.raises(NotImplementedError):
+            train.fit(model, lambda split: None, cfg, mesh=value)
+        return
+    loader = batching.CCNLoader(qm9.synthetic_qm9_like(8, seed=0), 4, task=0,
+                                device="cpu")
+    ckpt = Checkpointer(str(tmp_path))
+    if field != "checkpointer":
         setattr(cfg, field, value)
-    else:
-        kwargs[field] = value
-    with pytest.raises(NotImplementedError):
-        train.fit(ccn.CCN1D(n_features=5, hidden=2, n_layers=1),
-                  lambda split: None, cfg, **kwargs)
+    for epochs in ((1, 2) if field == "resume" else (1,)):
+        cfg.epochs = epochs
+        _, history = train.fit(
+            model, lambda split: loader if split == "train" else None, cfg,
+            checkpointer=ckpt)
+        assert len(history) == 1 and ckpt.latest_step() == epochs
+        assert np.isfinite(history[0]["train_loss"])
 
 
 @pytest.mark.parametrize("change", ["dp", "dataset", "arch"])
@@ -347,7 +362,7 @@ def test_run_experiment_refuses_configs_of_later_slices(tmp_path, change):
         cfg.dp = 2
     elif change == "dataset":
         cfg.data.dataset, cfg.data.data_path = "qm9", str(tmp_path / "qm9.npz")
-    else:  # packed training comes with a later slice
-        cfg.model.arch, cfg.model.packed = "gnn", True
+    else:  # --packed trains on one device; over edge shards is a later slice
+        cfg.model.arch, cfg.model.packed, cfg.edge_shards = "gnn", True, 2
     with pytest.raises(NotImplementedError):
         common.run_experiment(cfg)
