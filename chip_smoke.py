@@ -85,6 +85,21 @@ Phases, each of which raises on failure (nothing is caught):
               resume for one more epoch with --bn_recalib on the card and
               on the CPU and hold the two histories to each other; time a
               step as phase 6 does.
+  9. serving  serving from files: assert that the native (C++) host
+     from     library built; write caches of synthetic QM9-shaped
+     files    molecules with qm9.save_cache (10,240 to train on, 2,048
+              requests); time one 1,024-molecule batch build of each
+              layout with the native library on and off (batches equal);
+              train GNNSimple(L=15, h=1), GNNLineGraph(L=5, h=1, order
+              2), PackedGNN(L=15, h=1), CCN2D(L=2, h=2) and CCN1D(L=20,
+              h=2) for one epoch each through main_gnn_qm9 / main_ccn_qm9
+              --data_path --ckpt on the card; export each with --bs 1024
+              --buckets 256; serve the 2,048 requests through each bundle
+              on the card (molecules/s, launches: K3 or K1 once a layer a
+              chunk, none for the GNNs; the build vs forward split) and on
+              the CPU; hold call(arrays) to predict on one 256-molecule
+              chunk; run the predict CLI on the card and on the CPU and
+              hold its predictions and MAE to each other.
 
 The last three lines are JSON: the launch floor, each kernel, and
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
@@ -1524,6 +1539,252 @@ def phase_packed_train(dev, card: str) -> dict[str, int]:
     return launches
 
 
+N_FILE_MOLS = 10240  # the training cache: 8,192 train molecules
+SERVE9_BUCKETS = ["--bs", "1024", "--buckets", "256"]
+# phase 9's models: (name, main_* module, train argv, export/predict argv,
+# the kernel a serving layer launches, layers); the GNNs train at MAIN_BS
+# molecules a step, the CCN models at TRAIN_BS
+SERVE9_MODELS = (
+    ("GNNSimple L=15 h=1 J=1", "main_gnn_qm9", ["--L", "15", "--h", "1"],
+     ["--arch", "gnn", "--L", "15", "--h", "1"], None, 15),
+    ("GNNLineGraph L=5 h=1 J=1 order 2", "main_gnn_qm9",
+     ["--lg", "--update", "2", "--L", "5", "--h", "1"],
+     ["--arch", "lggnn", "--update", "2", "--L", "5", "--h", "1"], None, 5),
+    ("PackedGNN L=15 h=1 J=1", "main_gnn_qm9", ["--packed", "--L", "15", "--h", "1"],
+     ["--packed", "--arch", "gnn", "--L", "15", "--h", "1"], None, 15),
+    ("CCN2D L=2 h=2", "main_ccn_qm9", ["--k", "2", "--L", "2", "--h", "2"],
+     ["--arch", "ccn2d", "--L", "2", "--h", "2"], "K3", 2),
+    ("CCN1D L=20 h=2", "main_ccn_qm9", ["--k", "1", "--L", "20", "--h", "2"],
+     ["--arch", "ccn1d", "--L", "20", "--h", "2"], "K1", 20),
+)
+
+
+def _counted(counters, totals, fn):
+    """fn() with every launch counter set to 0 just before and read just
+    after; the launches are added to totals and returned with fn's
+    result."""
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    got = {k: c.launches for k, c in counters.items()}
+    for k, n in got.items():
+        totals[k] += n
+    return out, got
+
+
+def _serve_split(sm, requests) -> None:
+    """Where a predict call's time goes: each chunk's batch build and
+    host-to-device copy (host clock, synchronized), then one full chunk's
+    forward (host clock and device time by CUDA events); the card's busy
+    share is the chunks' device time over the whole call's host time."""
+    build = sm.build_batch
+    builds = []
+
+    def timed_build(records, spec):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = build(records, spec)
+        torch.cuda.synchronize()
+        builds.append((time.perf_counter() - t0, len(records), batch))
+        return batch
+
+    sm.build_batch = timed_build
+    try:
+        t0 = time.perf_counter()
+        sm.predict(requests)
+        total_s = time.perf_counter() - t0
+    finally:
+        del sm.build_batch
+    _, n, batch = builds[0]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sm.model(batch)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        dev_ms = _time_ms(lambda: sm.model(batch), reps=10, warmup=2,
+                          busy=10 * BUSY_CYCLES)
+    build_ms = sum(b[0] for b in builds) * 1e3
+    busy = len(builds) * dev_ms / (total_s * 1e3)
+    print(f"    split: {len(builds)} chunks, batch build + copy {build_ms:.2f} "
+          f"ms in all (host clock; the first chunk of {n} molecules "
+          f"{builds[0][0] * 1e3:.2f} ms); one full chunk's forward "
+          f"{host_ms:.3f} ms host clock, {dev_ms:.4f} ms device (CUDA "
+          f"events); the call {total_s * 1e3:.1f} ms, card busy about "
+          f"{100 * busy:.1f} %")
+
+
+def _native_builds(dev, requests) -> None:
+    """The batch builds of one 1,024-molecule chunk with the native
+    library on, off, off and on (host clock; the card's copy included;
+    the first build of a shape also pays the allocator): CCN chi tables,
+    and dense and packed batches of fresh records, whose line graphs are
+    built in the call. The batches must be equal."""
+    from unittest import mock
+
+    from hgnn2_torch import graphs, native
+    from hgnn2_torch.graphs import GraphRecord
+    from hgnn2_torch.nn import ccn
+
+    chunk = requests[:1024]
+    builds = {
+        "make_ccn_batch (K=5)": lambda rs: ccn.make_ccn_batch(
+            rs, k_max=5, task=0, device=dev),
+        "make_dense_batch with line graphs": lambda rs: graphs.make_dense_batch(
+            rs, n_max=32, with_line_graph=True, task=0, device=dev),
+        "make_packed_batch": lambda rs: graphs.make_packed_batch(
+            rs, task=0, device=dev),
+    }
+    for name, fn in builds.items():
+        ms = {True: [], False: []}
+        batches = []
+        for on in (True, False, False, True):
+            fresh = [GraphRecord(x=r.x, adj=r.adj, y=r.y) for r in chunk]
+            with mock.patch.object(native, "available", return_value=on):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                batches.append(fn(fresh))
+                torch.cuda.synchronize()
+                ms[on].append((time.perf_counter() - t0) * 1e3)
+        for f in dataclasses.fields(batches[0]):
+            a = getattr(batches[0], f.name)
+            if isinstance(a, torch.Tensor) and not all(
+                    torch.equal(a, getattr(b, f.name)) for b in batches[1:]):
+                raise AssertionError(f"{name}: {f.name} differs with the "
+                                     "native library on and off")
+        print(f"  native library: {name} of {len(chunk)} molecules on "
+              f"{ms[True][0]:.1f} / {ms[True][1]:.1f} ms, off "
+              f"{ms[False][0]:.1f} / {ms[False][1]:.1f} ms (host clock; run "
+              f"on, off, off, on), batches equal")
+
+
+def phase_serve_files(dev, card: str) -> dict[str, int]:
+    """Serving from QM9 files on the card: write a cache of synthetic
+    QM9-shaped molecules, train each of SERVE9_MODELS for one epoch
+    through its CLI (--data_path --ckpt), export it with --bs 1024
+    --buckets 256, serve 2,048 requests through the bundle on the card and
+    on the CPU, hold call(arrays) to predict on one chunk, and run the
+    predict CLI on the card and on the CPU. Returns each kernel's
+    launches in the card's runs."""
+    import contextlib
+    import io
+
+    from hgnn2_torch import native, serving
+    from hgnn2_torch.cli import export, main_ccn_qm9, main_gnn_qm9, predict
+    from hgnn2_torch.data import qm9
+
+    t_phase = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native library did not build on this machine")
+    out = os.path.join(OUT_DIR, "serve_files")
+    os.makedirs(out, exist_ok=True)
+    train_cache = os.path.join(out, "train.npz")
+    req_cache = os.path.join(out, "requests.npz")
+    qm9.save_cache(qm9.synthetic_qm9_like(N_FILE_MOLS, seed=0), train_cache)
+    qm9.save_cache(qm9.synthetic_qm9_like(N_REQUESTS, seed=1), req_cache)
+    requests = qm9.load_cache(req_cache)
+    _native_builds(dev, requests)
+    mains = {"main_gnn_qm9": main_gnn_qm9, "main_ccn_qm9": main_ccn_qm9}
+    counters = _counters()
+    launches = dict.fromkeys(counters, 0)
+    for i, (name, main, train_argv, argv, key, n_layers) in enumerate(
+            SERVE9_MODELS):
+        ckpt, bundle = os.path.join(out, f"ck{i}"), os.path.join(out, f"b{i}")
+        argv = argv + ["--data_path", req_cache]
+        bs = TRAIN_BS if key else MAIN_BS
+        t0 = time.perf_counter()
+        (_, history), got = _counted(counters, launches, lambda: mains[main].main(
+            train_argv + ["--data_path", train_cache, "--bs", str(bs),
+                          "--epochs", "1", "--ckpt", ckpt, "--device", str(dev),
+                          "--log_path", os.path.join(out, f"log{i}")]))
+        train_s = time.perf_counter() - t0
+        if len(history) != 1 or not all(np.isfinite(v)
+                                        for v in history[0].values()):
+            raise AssertionError(f"{name}: training history {history}")
+        if key is None and any(got.values()):
+            raise AssertionError(f"{name} launched a CCN or ring kernel: {got}")
+        if key is not None:
+            pair = ("K1", "K2") if key == "K1" else ("K3", "K4")
+            if not all(got[k] for k in pair) or any(
+                    n for k, n in got.items() if k not in pair):
+                raise AssertionError(f"{name}: training launches {got}")
+        with contextlib.redirect_stdout(io.StringIO()):  # the bundle's path
+            _, got_export = _counted(counters, launches, lambda: export.main(
+                argv + SERVE9_BUCKETS + ["--ckpt", ckpt, "--out", bundle,
+                                         "--device", str(dev)]))
+        sm = serving.load_bundle(bundle, device=dev)
+        sm.predict(requests[:8])  # first calls: cuBLAS handles, allocations
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preds, got_serve = _counted(counters, launches,
+                                    lambda: sm.predict(requests))  # the main path
+        secs = time.perf_counter() - t0
+        n_chunks = len(list(serving._greedy_spans(
+            np.array([[r.n_nodes] for r in requests]), (sm.buckets[0][1],),
+            sm.buckets[0][0]))) if sm.kind == "ccn" else None
+        want = {k: 0 for k in counters}
+        if key is not None:
+            want[key] = n_layers * n_chunks
+        print(f"  {name}: trained 1 epoch in {train_s:.2f} s (host clock, "
+              f"train launches {got}), exported {sm.kind} bundle buckets "
+              f"{sm.buckets} (smoke call launches {got_export}); "
+              f"{N_REQUESTS} requests in {secs:.4f} s, "
+              f"{N_REQUESTS / secs:.1f} molecules/s on {card}; serving "
+              f"launches {got_serve} (expected {want})")
+        if got_serve != want:
+            raise AssertionError(f"{name}: serving launches {got_serve} != {want}")
+        if key is not None and got_export[key] != n_layers:
+            raise AssertionError(f"{name}: export's smoke call launched "
+                                 f"{got_export}")
+        if preds.shape != (N_REQUESTS,) or not np.isfinite(preds).all():
+            raise AssertionError(f"{name}: predictions not finite or misshapen")
+        _serve_split(sm, requests)
+        ref = serving.load_bundle(bundle, device="cpu").predict(requests)
+        err = float(np.abs(preds - ref).max())
+        scale = float(np.abs(ref).max())
+        # call(arrays) against predict on the 256-slot bucket's chunk
+        spec = sm._programs[-1][0]
+        chunk = requests[:serving._slots(spec)]
+        raw = sm.call(serving.batch_to_arrays(sm.build_batch(chunk, spec)))
+        called = (raw[: len(chunk), 0].float().cpu().numpy() * sm.meta["std"]
+                  + sm.meta["mean"])
+        call_err = float(np.abs(called - sm.predict(chunk)).max())
+        print(f"    card vs CPU bundle: max_abs_err={err:.3e}, max |pred|="
+              f"{scale:.3e}; call(arrays) vs predict on {len(chunk)} "
+              f"molecules: {call_err:.3e} (tolerance {SERVE_RTOL} x max |pred|)")
+        if err > SERVE_RTOL * scale or call_err > SERVE_RTOL * scale:
+            raise AssertionError(f"{name}: card, CPU and call disagree")
+        results = []
+        for j, where in enumerate((str(dev), "cpu")):
+            stdout = io.StringIO()
+            npz = os.path.join(out, f"p{i}_{j}.npz")
+            with contextlib.redirect_stdout(stdout):
+                fn = lambda: predict.main(argv + [
+                    "--bs", "1024", "--ckpt", ckpt, "--device", where,
+                    "--out", npz])
+                if j == 0:  # the card's run
+                    res, got_pred = _counted(counters, launches, fn)
+                else:
+                    res = fn()
+            if json.loads(stdout.getvalue().strip().splitlines()[-1]) != res:
+                raise AssertionError(f"{name}: predict printed another result")
+            results.append((res, np.load(npz)))
+        (res, npz), (cres, cnpz) = results
+        perr = float(np.abs(npz["predictions"] - cnpz["predictions"]).max())
+        pscale = float(np.abs(cnpz["predictions"]).max())
+        print(f"    predict CLI: MAE {res['mae']:.6f} on the card, "
+              f"{cres['mae']:.6f} on the CPU over {res['n']} molecules; "
+              f"predictions max_abs_err={perr:.3e} (max |pred| {pscale:.3e}); "
+              f"launches {got_pred}")
+        if (res["n"] != cres["n"] or perr > SERVE_RTOL * pscale
+                or abs(res["mae"] - cres["mae"]) > SERVE_RTOL * abs(cres["mae"])
+                or not np.array_equal(npz["targets"], cnpz["targets"])):
+            raise AssertionError(f"{name}: predict card vs CPU disagree")
+    print(f"  phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -1575,9 +1836,14 @@ def main() -> None:
 
     print("phase 8: packed training (--packed) and the trainer's extras")
     packed_train = phase_packed_train(dev, card)
+
+    print("phase 9: serving from files (preprocess cache -> train -> export "
+          "-> predict)")
+    served_files = phase_serve_files(dev, card)
     for key, row in rows.items():  # launches of the main paths' runs
         row["launches"] = (served[key] + trained[key] + packed[key]
-                           + main_path[key] + lggnn[key] + packed_train[key])
+                           + main_path[key] + lggnn[key] + packed_train[key]
+                           + served_files[key])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "ms_in_run", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps(floor))

@@ -4,12 +4,14 @@ hgnn2_tpu/cli/common.py).
 It trains the power GNN (GNNSimple over dense batches), the line-graph
 GNN (GNNLineGraph over dense batches with their line graphs), with
 --packed their packed segment-sum twins (PackedGNN, PackedLGGNN over
-PackedLoader batches), and the CCN models, on the synthetic QM9-shaped
-molecules or the collinear-points classification set; --ckpt saves a
-checkpoint every epoch, --resume goes on from the latest, --bn_recalib
-re-estimates the BN statistics after training. The flags of later slices
-(--dp, --edge_shards, --data_path) are not accepted; config fields of
-those slices raise in run_experiment or fit.
+PackedLoader batches), and the CCN models, on QM9 (an npz cache or a
+directory of .xyz files, --data_path), the synthetic QM9-shaped molecules
+or the collinear-points classification set; --ckpt saves a checkpoint
+every epoch, --resume goes on from the latest, --bn_recalib re-estimates
+the BN statistics after training. The flags of the parallel slice (--dp,
+--edge_shards) are not accepted; config fields of that slice raise in
+run_experiment or fit. The export and predict entry points load their
+data, target stats and packed checkpoints through the helpers here.
 """
 
 from __future__ import annotations
@@ -19,10 +21,12 @@ import logging
 import os
 import time
 
+import numpy as np
 import torch
 
 from hgnn2_torch import convert, resolve_device, runtime
 from hgnn2_torch.data import batching, qm9, stats, synthetic
+from hgnn2_torch.graphs import GraphRecord
 from hgnn2_torch.nn import ccn as ccn_mod
 from hgnn2_torch.nn import models
 from hgnn2_torch.nn import packed as packed_mod
@@ -39,31 +43,81 @@ TARGET_STATS_FILE = "target_stats.npz"
 
 
 def load_records(cfg: TrainConfig):
-    """Returns (records, kind, target_stats, source): the collinear-points
-    classification set for dataset synthetic (no target stats), else the
-    synthetic QM9-shaped molecules, for dataset qm9_synthetic or qm9 with
-    no data path (the JAX package's fallback). QM9 files come with the
-    data-ingestion slice."""
+    """Returns (records, kind, target_stats, source). Dataset resolution
+    for QM9: an npz cache at data_path, else a directory of .xyz files at
+    data_path (with --sp/--pc features), else the synthetic QM9-shaped
+    molecules, with a warning. source is the data path, or "synthetic" /
+    "synthetic_qm9_like" for the generated sets: callers that freeze
+    target stats into artifacts (cli/export.py) must refuse the QM9-shaped
+    fallback's stats."""
     d = cfg.data
-    if d.oracle_features:
-        raise NotImplementedError("oracle features come with a later slice")
     if d.dataset == "synthetic":
         recs = synthetic.three_collinear_points(
             d.n_synthetic, d.n_max, d.dim, d.p, d.c, seed=cfg.seed)
         return recs, "classification", None, "synthetic"
     if d.dataset == "qm9_synthetic":
+        # an explicit request for the QM9-shaped generator: the records of
+        # the qm9 fallback, without the warning
         recs = qm9.synthetic_qm9_like(d.n_synthetic, seed=cfg.seed)
+        if d.oracle_features:
+            # control run: per-node features whose node sums are exactly
+            # the generator's target mix inputs, so the pipeline should
+            # train to the least-squares floor
+            recs = [
+                GraphRecord(
+                    x=np.concatenate([
+                        r.x,
+                        np.ones((r.n_nodes, 1), np.float32),
+                        (r.adj.sum(1, keepdims=True) / 2.0).astype(np.float32),
+                        ((r.adj == 2.0).sum(1, keepdims=True) / 2.0
+                         ).astype(np.float32),
+                    ], axis=1),
+                    adj=r.adj, y=r.y)
+                for r in recs
+            ]
+            log.info("oracle features appended (control run)")
         log.info("generated %d synthetic QM9-shaped molecules", len(recs))
-    elif d.dataset == "qm9" and not d.data_path:
-        log.warning("no QM9 data path given — using %d synthetic QM9-shaped "
-                    "molecules", d.n_synthetic)
-        recs = qm9.synthetic_qm9_like(d.n_synthetic, seed=cfg.seed)
+        return (recs, "regression", stats.compute_target_stats(recs),
+                "synthetic_qm9_like")
+    if d.data_path and os.path.isfile(d.data_path):
+        recs = qm9.load_cache(d.data_path)
+        src = d.data_path
+    elif d.data_path and os.path.isdir(d.data_path):
+        recs = qm9.load_qm9_dir(d.data_path, d.spatial, d.charge)
+        src = d.data_path
     else:
-        raise NotImplementedError(
-            f"dataset {d.dataset!r} (data_path {d.data_path!r}) comes with a "
-            "later slice; qm9_synthetic and qm9 without a data path run")
-    return (recs, "regression", stats.compute_target_stats(recs),
-            "synthetic_qm9_like")
+        log.warning("no QM9 data path given/found — using %d synthetic "
+                    "QM9-shaped molecules", d.n_synthetic)
+        recs = qm9.synthetic_qm9_like(d.n_synthetic, seed=cfg.seed)
+        src = "synthetic_qm9_like"
+    log.info("loaded %d molecules from %s", len(recs), src)
+    return recs, "regression", stats.compute_target_stats(recs), src
+
+
+def saved_target_stats(ckpt_path: str | None):
+    """Target stats persisted next to a checkpoint at train time, if any.
+    Export and predict prefer these over stats recomputed from whatever
+    dataset happens to be loadable then."""
+    if not ckpt_path:
+        return None
+    path = os.path.join(ckpt_path, TARGET_STATS_FILE)
+    if os.path.exists(path):
+        return stats.TargetStats.load(path)
+    return None
+
+
+def restore_packed_checkpoint(ckpt_path: str, model) -> int | None:
+    """Loads the latest checkpoint of a --packed run into ``model`` (a
+    PackedGNN or PackedLGGNN of the run's configuration) for export or
+    prediction. Returns the epoch it was saved after, or None when
+    ckpt_path holds none. The port's packed checkpoints all come from the
+    single-device fit (Checkpointer.save: the model's state_dict with its
+    BN buffers, then the optimizer's and the schedule's), so this one
+    layout is read; the edge-sharded trainer's comes with the parallel
+    slice."""
+    if not isinstance(model, (packed_mod.PackedGNN, packed_mod.PackedLGGNN)):
+        raise TypeError(f"not a packed model: {type(model).__name__}")
+    return ckpt_lib.Checkpointer(ckpt_path).restore(model)
 
 
 def build_model(cfg: TrainConfig, kind: str, n_features: int):
@@ -217,10 +271,14 @@ def run_experiment(cfg: TrainConfig, init_params=None):
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
-    """The flags of the JAX CLI that this slice honours, plus --device."""
+    """The flags of the JAX CLI that the port honours, plus --device."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu for the plain PyTorch path")
+    p.add_argument("--data_path", default=None,
+                   help="QM9: an npz cache (cli/preprocess.py) or a "
+                        "directory of .xyz files; without it the synthetic "
+                        "QM9-shaped molecules stand in")
     p.add_argument("--log_path", default=None)
     p.add_argument("--ckpt", dest="checkpoint_path", default=None,
                    help="save a checkpoint here after every epoch")
@@ -290,6 +348,7 @@ def config_from_args(args, arch: str, dataset: str) -> TrainConfig:
     cfg.model.ccn_kernel = args.ccn_kernel
     cfg.model.packed = args.packed
     cfg.data.dataset = dataset
+    cfg.data.data_path = args.data_path
     cfg.data.task = args.task
     cfg.data.shuffle_split = args.shuffle
     cfg.data.cache_batches = not args.no_cache

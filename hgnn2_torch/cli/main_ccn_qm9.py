@@ -4,8 +4,8 @@ hgnn2_tpu/cli/main_ccn_qm9.py).
   python -m hgnn2_torch.cli.main_ccn_qm9 --k 2 --L 2 --h 2 --bs 64
   python -m hgnn2_torch.cli.main_ccn_qm9 --k 2 --L 2 --h 2 --bs 64 --device cpu
 
-With no QM9 files ported yet, dataset qm9 falls back to the synthetic
-QM9-shaped molecules, as the JAX entry point does without a data path.
+--data_path reads an npz cache or a directory of .xyz files; without it
+the synthetic QM9-shaped molecules stand in, as in the JAX entry point.
 """
 
 from hgnn2_torch.cli import common

@@ -4,11 +4,12 @@ GNNLineGraph (update order --update 1/2/3), over cached dense batches.
 
   python -m hgnn2_torch.cli.main_gnn_qm9 --L 15 --h 1 --bs 2048 --epochs 20
   python -m hgnn2_torch.cli.main_gnn_qm9 --lg --update 2 --L 5 --h 1 --J 1 --bs 2048
+  python -m hgnn2_torch.cli.main_gnn_qm9 --data_path qm9.npz --ckpt runs/ck
   python -m hgnn2_torch.cli.main_gnn_qm9 --L 3 --h 2 --bs 64 --device cpu
 
-With no QM9 files ported yet, the synthetic QM9-shaped molecules stand in,
-as in the JAX entry point without a data path; --sp and --pc are stored
-for the data-ingestion slice.
+--data_path reads an npz cache (cli/preprocess.py) or a directory of .xyz
+files, whose records take the --sp/--pc features; without it the
+synthetic QM9-shaped molecules stand in, as in the JAX entry point.
 """
 
 from hgnn2_torch.cli import common

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from hgnn2_torch import resolve_device
+from hgnn2_torch import native, resolve_device
 from hgnn2_torch.graphs import GraphRecord
 from hgnn2_torch.nn.layers import ref_linear
 from hgnn2_torch.ops import ccn_fused, contractions, sparse
@@ -69,8 +69,10 @@ def make_ccn_batch(
     batch_size: int | None = None,
     device: str | torch.device | None = None,
 ) -> CCNBatch:
-    """Builds the batched chi/neighbor tables on the host with numpy and
-    moves them to ``device`` (default cuda) once.
+    """Builds the batched chi/neighbor tables on the host, each graph's
+    through the C++ library (hgnn2_torch.native) when it is available,
+    else with numpy (the same tables), and moves them to ``device``
+    (default cuda) once.
 
     add_self_loops uses A + I, which guarantees chi_ii exists. batch_size
     pads the graph axis with empty graphs (gmask 0) so a serving bucket
@@ -107,6 +109,7 @@ def make_ccn_batch(
     vmask = np.zeros((V,), dtype=np.float32)
     gid = np.full((V,), B, dtype=np.int32)
 
+    use_native = native.available()
     off = 0
     ys = []
     for g, (r, lists) in enumerate(zip(records, nbr_lists)):
@@ -115,26 +118,34 @@ def make_ccn_batch(
         gid[off : off + n] = g
         vmask[off : off + n] = 1.0
         degs = np.array([len(l) for l in lists], dtype=np.int32)
-        # chi_idx[v,k,a] = position of lists[v][a] in lists[lists[v][k]],
-        # else -1
-        L = np.full((n, K), -1, dtype=np.int64)
-        for i, li in enumerate(lists):
-            L[i, : len(li)] = li
-        pos = np.full((n, n), -1, dtype=np.int32)
-        if degs.sum():
-            u_idx = np.repeat(np.arange(n), degs)
-            pos[u_idx, np.concatenate(lists)] = np.concatenate(
-                [np.arange(d) for d in degs])
-        safe = np.where(L >= 0, L, 0)
-        ci = pos[safe[:, :, None], safe[:, None, :]]  # (n, K, K)
-        invalid = (L[:, :, None] < 0) | (L[:, None, :] < 0)
-        chi_idx[off : off + n] = np.where(invalid, -1, ci)
-        # rslot[v, k] = slot of v in lists[L[v, k]]
-        rs = pos[safe, np.arange(n)[:, None]]
-        rslot[off : off + n] = np.where(L >= 0, rs, -1)
-        deg[off : off + n] = degs
-        row_mask[off : off + n] = (L >= 0).astype(np.float32)
-        nbr[off : off + n] = np.where(L >= 0, L + off, 0).astype(np.int32)
+        if use_native:
+            offsets = np.zeros(n + 1, np.int32)
+            np.cumsum(degs, out=offsets[1:])
+            flat = (np.concatenate(lists).astype(np.int32) if lists
+                    else np.zeros(0, np.int32))
+            native.build_chi_tables_native(offsets, flat, K, off, chi_idx,
+                                           rslot, nbr, deg, row_mask)
+        else:
+            # chi_idx[v,k,a] = position of lists[v][a] in lists[lists[v][k]],
+            # else -1
+            L = np.full((n, K), -1, dtype=np.int64)
+            for i, li in enumerate(lists):
+                L[i, : len(li)] = li
+            pos = np.full((n, n), -1, dtype=np.int32)
+            if degs.sum():
+                u_idx = np.repeat(np.arange(n), degs)
+                pos[u_idx, np.concatenate(lists)] = np.concatenate(
+                    [np.arange(d) for d in degs])
+            safe = np.where(L >= 0, L, 0)
+            ci = pos[safe[:, :, None], safe[:, None, :]]  # (n, K, K)
+            invalid = (L[:, :, None] < 0) | (L[:, None, :] < 0)
+            chi_idx[off : off + n] = np.where(invalid, -1, ci)
+            # rslot[v, k] = slot of v in lists[L[v, k]]
+            rs = pos[safe, np.arange(n)[:, None]]
+            rslot[off : off + n] = np.where(L >= 0, rs, -1)
+            deg[off : off + n] = degs
+            row_mask[off : off + n] = (L >= 0).astype(np.float32)
+            nbr[off : off + n] = np.where(L >= 0, L + off, 0).astype(np.int32)
         off += n
         ys.append(r.y if task is None else r.y[task])
     y = np.stack([np.asarray(t) for t in ys], axis=0)

@@ -34,8 +34,9 @@ class GNNSimple(nn.Module):
                  dtype: torch.dtype | None = None, gru: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
-        self.n_features, self.n_layers = n_features, n_layers
-        self.dim_output, self.J, self.dtype = dim_output, J, dtype
+        self.in_features, self.n_features = in_features, n_features
+        self.n_layers, self.dim_output = n_layers, dim_output
+        self.J, self.compat, self.dtype, self.gru = J, compat, dtype, gru
         width = in_features
         for i in range(n_layers - 1):
             self.add_module(f"layer{i}", layers.PowerLayer(
@@ -72,8 +73,9 @@ class GNNLineGraph(nn.Module):
                  dtype: torch.dtype | None = None, fused_ops: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
-        self.n_features, self.n_layers = n_features, n_layers
-        self.dim_output, self.J, self.order = dim_output, J, order
+        self.in_features, self.n_features = in_features, n_features
+        self.n_layers, self.dim_output = n_layers, dim_output
+        self.J, self.order, self.compat = J, order, compat
         self.dtype, self.fused_ops = dtype, fused_ops
         # layer0 is built even at n_layers = 1, as the flax model builds it
         self.n_lg_layers = max(n_layers - 1, 1)

@@ -101,7 +101,8 @@ class PackedLGGNN(_PackedBase):
         super().__init__()
         if order not in (1, 2, 3):
             raise ValueError(f"order must be 1, 2 or 3; got {order}")
-        self.n_features, self.n_layers = n_features, n_layers
+        self.in_features, self.n_features = in_features, n_features
+        self.n_layers = n_layers
         self.dim_output, self.J, self.order = dim_output, J, order
         self.compat, self.bn_axis = compat, bn_axis
         k = J + 2
@@ -163,7 +164,8 @@ class PackedGNN(_PackedBase):
                  bn_axis: str | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        self.n_features, self.n_layers = n_features, n_layers
+        self.in_features, self.n_features = in_features, n_features
+        self.n_layers = n_layers
         self.dim_output, self.J = dim_output, J
         self.compat, self.bn_axis = compat, bn_axis
         width = in_features

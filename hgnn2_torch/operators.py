@@ -8,8 +8,9 @@ scanning the upper triangle row-major, so M = 2E; self-loops are
 excluded. rev[e] is the index of e's reverse edge. Pm[u, e] = Pm[v, e] =
 1 for e = (u -> v); Pd[u, e] = +1, Pd[v, e] = -1. The non-backtracking
 adjacency is AL[m1, m2] = w(m2) iff dst(m1) == src(m2) and src(m1) !=
-dst(m2). Only the numpy path of the line-graph builder is ported; it
-gives the same arrays as the JAX package's C++ library.
+dst(m2). The line graph comes from the C++ library (hgnn2_torch.native)
+when it is available, else from the numpy path; both give the same
+arrays.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from hgnn2_torch import native
 
 
 @dataclasses.dataclass
@@ -50,8 +53,14 @@ def undirected_edges(A: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return edges, A[iu[keep], ju[keep]].astype(np.float32)
 
 
-def build_line_graph(A: np.ndarray) -> LineGraph:
-    """Directed line graph with interleaved forward/reverse edge pairs."""
+def build_line_graph(A: np.ndarray, use_native: bool = True) -> LineGraph:
+    """Directed line graph with interleaved forward/reverse edge pairs.
+
+    Uses the C++ library (hgnn2_torch.native) when use_native and it is
+    available; the numpy path below is the reference and the fallback."""
+    if use_native and native.available():
+        src, dst, w, rev = native.build_line_graph_native(A)
+        return LineGraph(src=src, dst=dst, w=w, rev=rev)
     edges, w = undirected_edges(A)
     E = edges.shape[0]
     src = np.empty(2 * E, dtype=np.int32)

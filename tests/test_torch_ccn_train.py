@@ -354,14 +354,22 @@ def test_fit_refuses_options_of_later_slices(tmp_path, field, value):
 
 @pytest.mark.parametrize("change", ["dp", "dataset", "arch"])
 def test_run_experiment_refuses_configs_of_later_slices(tmp_path, change):
+    """Named for the refusals it held before QM9 ingestion was ported: dp
+    and edge shards still raise (the parallel slice); a QM9 cache at
+    data_path now trains (tests/test_torch_ingest.py and
+    tests/test_torch_export_predict.py hold ingestion to JAX's)."""
     cfg = TrainConfig(batch_size=4, epochs=1, device="cpu",
                       log_path=str(tmp_path))
     cfg.data.dataset, cfg.data.n_synthetic = "qm9_synthetic", 8
     cfg.model.arch = "ccn1d"
+    if change == "dataset":
+        cfg.data.dataset, cfg.data.data_path = "qm9", str(tmp_path / "qm9.npz")
+        qm9.save_cache(qm9.synthetic_qm9_like(10, seed=1), cfg.data.data_path)
+        model, history = common.run_experiment(cfg)
+        assert len(history) == 1 and np.isfinite(history[0]["train_loss"])
+        return
     if change == "dp":
         cfg.dp = 2
-    elif change == "dataset":
-        cfg.data.dataset, cfg.data.data_path = "qm9", str(tmp_path / "qm9.npz")
     else:  # --packed trains on one device; over edge shards is a later slice
         cfg.model.arch, cfg.model.packed, cfg.edge_shards = "gnn", True, 2
     with pytest.raises(NotImplementedError):

@@ -372,18 +372,22 @@ def test_profiling_matches_jax_and_has_no_cpu_peaks():
 
 
 def test_port_imports_no_jax_or_matplotlib():
-    """Importing every module of the port, chip_smoke.py and
-    bench_torch.py loads neither JAX, flax, the JAX package nor
-    matplotlib."""
+    """Importing every module of the port (the ingestion, native library,
+    serving, export, predict and preprocess modules among them),
+    chip_smoke.py and bench_torch.py loads neither JAX, flax, the JAX
+    package nor matplotlib, and builds no native library."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = (
         "import pkgutil, importlib, sys, hgnn2_torch\n"
         "for m in pkgutil.walk_packages(hgnn2_torch.__path__, 'hgnn2_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke, bench_torch\n"
+        "from hgnn2_torch import native\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'hgnn2_tpu', 'matplotlib')]\n"
-        "print(bad)\n")
+        "new = ['hgnn2_torch.' + m for m in ('data.smiles', 'data.qm9', "
+        "'native', 'serving', 'cli.export', 'cli.predict', 'cli.preprocess')]\n"
+        "print(bad, [m for m in new if m not in sys.modules], native._lib)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=root, check=True,
                          capture_output=True, text=True).stdout
-    assert out.strip() == "[]"
+    assert out.strip() == "[] [] None"
