@@ -100,6 +100,25 @@ Phases, each of which raises on failure (nothing is caught):
               the CPU; hold call(arrays) to predict on one 256-molecule
               chunk; run the predict CLI on the card and on the CPU and
               hold its predictions and MAE to each other.
+ 10. captured the compiled step and the scanned epoch as CUDA graphs:
+              for GNNSimple(L=15, h=1), GNNLineGraph(L=5, h=1, order 2)
+              and PackedGNN(L=15, h=1) at 2,048 molecules a step and
+              CCN1D(L=20, h=2; K1, K2) and CCN2D(L=2, h=2; K3, K4) at
+              1,024, two epochs through run_epoch_scanned (one replayed
+              graph a step for each shape group) against the eager
+              run_epoch from the same weights in the same order;
+              evaluate_scanned against evaluate, the captured BN
+              recalibration against the eager one, make_multi_train_step
+              (10 steps, one graph) against 10 eager steps; host and
+              device ms a step and the busy share, eager and replayed;
+              graphs, shape groups, capture seconds and pool bytes.
+
+Phases 4 and 6-10 train through fit, whose epochs replay CUDA graphs:
+a kernel wrapper's launch count moves when Python calls it (an eager
+step, a graph's warm-up runs and its capture), not when a graph replays
+the launch it recorded. Phases 4 and 10 hold the counts to the layers
+times the Python-level forwards and print the replayed launches
+(replays times the kernels a graph holds) beside them.
 
 The last three lines are JSON: the launch floor, each kernel, and
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
@@ -110,7 +129,9 @@ on the card compute what they compute on the CPU.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -725,6 +746,19 @@ def phase_serving(dev, card: str) -> dict[str, int]:
     return launches
 
 
+_SYNTHETIC: dict = {}
+
+
+def _synthetic(n: int) -> list:
+    """qm9.synthetic_qm9_like(n, seed=0), the molecules run_experiment
+    draws for n, made once a run (each record memoizes its line graph)."""
+    from hgnn2_torch.data import qm9
+
+    if n not in _SYNTHETIC:
+        _SYNTHETIC[n] = qm9.synthetic_qm9_like(n, seed=0)
+    return _SYNTHETIC[n]
+
+
 def _train_cfg(arch: str, n_layers: int, device: str, log_path: str):
     """The training phase's configuration: h = 2, 1,024 molecules a step,
     Adamax at lr 1e-3, on the synthetic QM9-shaped molecules."""
@@ -927,11 +961,15 @@ def _step_times(cfg, params, card: str, records) -> None:
 
 def phase_training(card: str) -> dict[str, int]:
     """Train CCN2D(L=2, h=2) and CCN1D(L=20, h=2) through run_experiment on
-    the card. Returns each kernel's launches summed over the two runs."""
+    the card, whose fit replays captured graphs: the kernels' counts move
+    at the Python-level forwards (each graph's warm-up runs and capture),
+    so they are held to the layers times those forwards, and the replays
+    to one a train step and an eval batch. Returns each kernel's launches
+    summed over the two runs."""
     from hgnn2_torch.cli import common
-    from hgnn2_torch.data import qm9
+    from hgnn2_torch.nn import ccn
 
-    records = qm9.synthetic_qm9_like(N_TRAIN_MOLS, seed=0)  # as run_experiment's
+    records = _synthetic(N_TRAIN_MOLS)  # as run_experiment's
     counters = _counters()
     launches = dict.fromkeys(counters, 0)
     n_train = int(0.8 * N_TRAIN_MOLS)
@@ -948,27 +986,35 @@ def phase_training(card: str) -> dict[str, int]:
             c.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, history = common.run_experiment(cfg, init_params=params)  # the main path
-        torch.cuda.synchronize()
+        with _Runs(ccn.CCN1D, ccn.CCN2D) as runs:
+            _, history = common.run_experiment(cfg, init_params=params)  # the main path
+            torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         got = {k: c.launches for k, c in counters.items()}
         for k, n in got.items():
             launches[k] += n
 
         want = dict.fromkeys(counters, 0)
-        want[fwd] = n_layers * (steps + eval_batches)
-        want[bwd] = (n_layers - 1) * steps
+        want[fwd] = n_layers * (runs.train + runs.eval)
+        want[bwd] = (n_layers - 1) * runs.train
+        replayed = {fwd: n_layers * (steps + eval_batches),
+                    bwd: (n_layers - 1) * steps}
         losses = [(row["train_loss"], row["valid_loss"], row["test_loss"])
                   for row in history]
         print(f"  {name} L={n_layers} h=2: run_experiment, {TRAIN_EPOCHS} epochs "
               f"x {steps // TRAIN_EPOCHS} steps of {TRAIN_BS} molecules, "
               f"{secs:.2f} s host clock on {card} (batch builds included); "
               f"(train, valid, test) loss per epoch {losses}; launches {got} "
-              f"(expected {want})")
+              f"(expected {want}: {runs.train} train and {runs.eval} eval "
+              f"Python-level forwards, the graphs' warm-up runs and "
+              f"captures); {runs.replays} graph replays (expected "
+              f"{steps + eval_batches}, one a step and an eval batch), so "
+              f"{replayed} launches replayed")
         if not cfg.model.ccn_kernel:
             raise AssertionError(f"{name}: run_experiment did not enable the kernels")
-        if got != want:
-            raise AssertionError(f"{name}: kernel launches {got} != {want}")
+        if got != want or runs.replays != steps + eval_batches:
+            raise AssertionError(f"{name}: kernel launches {got} != {want} "
+                                 f"or {runs.replays} replays")
         if len(history) != TRAIN_EPOCHS or not all(
                 np.isfinite(v) for row in history for v in row.values()):
             raise AssertionError(f"{name}: training history not finite: {history}")
@@ -1174,11 +1220,11 @@ def phase_main(dev, card: str) -> dict[str, int]:
     (``dev``) and hold it to the CPU. Returns each kernel's launches in
     that run (the path has none)."""
     from hgnn2_torch.cli import common
-    from hgnn2_torch.data import batching, qm9, synthetic
+    from hgnn2_torch.data import batching, synthetic
     from hgnn2_torch.nn import models
     from hgnn2_torch.ops import dense
 
-    records = qm9.synthetic_qm9_like(N_MAIN_MOLS, seed=0)  # as run_experiment's
+    records = _synthetic(N_MAIN_MOLS)  # as run_experiment's
     F_in = records[0].x.shape[1]
     cfg = _main_cfg(str(dev), os.path.join(OUT_DIR, "train_gnn"))
     params = _flax_variables(common.build_model(cfg, "regression", F_in), 7)
@@ -1287,12 +1333,12 @@ def phase_lggnn(dev, card: str) -> dict[str, int]:
     the card (``dev``) and hold it to the CPU. Returns each kernel's
     launches in that run (the path has none)."""
     from hgnn2_torch.cli import common
-    from hgnn2_torch.data import batching, qm9, synthetic
+    from hgnn2_torch.data import batching, synthetic
     from hgnn2_torch.nn import models
     from hgnn2_torch.nn.bundles import DenseBundle
     from hgnn2_torch.nn.layers import CompatConfig
 
-    records = qm9.synthetic_qm9_like(N_MAIN_MOLS, seed=0)  # as run_experiment's
+    records = _synthetic(N_MAIN_MOLS)  # as run_experiment's
     F_in = records[0].x.shape[1]
     lg = dict(arch="lggnn", n_layers=5, order=2)
     cfg = _main_cfg(str(dev), os.path.join(OUT_DIR, "train_lggnn"), **lg)
@@ -1468,9 +1514,9 @@ def phase_packed_train(dev, card: str) -> dict[str, int]:
     restored on the CPU and resumed with --bn_recalib. Returns each
     kernel's launches in the two runs (the path has none)."""
     from hgnn2_torch.cli import common
-    from hgnn2_torch.data import batching, qm9, synthetic
+    from hgnn2_torch.data import batching, synthetic
 
-    records = qm9.synthetic_qm9_like(N_MAIN_MOLS, seed=0)  # as run_experiment's
+    records = _synthetic(N_MAIN_MOLS)  # as run_experiment's
     F_in = records[0].x.shape[1]
     valid = synthetic.split_80_10_10(records, seed=0)[1]
     n_train = int(0.8 * N_MAIN_MOLS)
@@ -1785,6 +1831,437 @@ def phase_serve_files(dev, card: str) -> dict[str, int]:
     return launches
 
 
+# phase 10's models: (name, arch, packed, L, h, the kernels its steps
+# launch); the GNNs on N_MAIN_MOLS molecules at MAIN_BS a step, the CCN
+# models on N_TRAIN_MOLS at TRAIN_BS, 2 epochs each
+PHASE10_MODELS = (
+    ("GNNSimple L=15 h=1 J=1", "gnn", False, 15, 1, ()),
+    ("GNNLineGraph L=5 h=1 J=1 order 2", "lggnn", False, 5, 1, ()),
+    ("PackedGNN L=15 h=1 J=1", "gnn", True, 15, 1, ()),
+    ("CCN1D L=20 h=2", "ccn1d", False, 20, 2, ("K1", "K2")),
+    ("CCN2D L=2 h=2", "ccn2d", False, 2, 2, ("K3", "K4")),
+)
+DENSE_RTOL = 1e-6  # captured vs eager, dense steps: bit-equal expected
+BN_RECAL_RTOL = 1e-5  # captured vs eager BN recalibration (other sum order)
+MULTI_INNER = 10
+# captured vs eager, steps with atomics (packed, CCN): every weight and BN
+# stat entry within tol x (1 + |value|), plus lr for each eager step whose
+# gradient of it was at rounding level (below QUIET_GRAD; _Slack). The two
+# tols are a few times the largest readings on an H100 (PERF.md section 2):
+# a model with BN parts further, since its biases' walks change the
+# rounding of everything after them
+ATOMIC_TOL_BN = 1e-4  # PackedGNN: weights read up to 3.3e-5, stats 2.4e-5
+ATOMIC_TOL = 1e-6  # CCN, no BN: weights read up to 1.5e-8
+QUIET_GRAD = 1e-6
+BUSY_MAX = 1.1  # device over host ms a step above this: the timing is wrong
+
+
+class _Slack:
+    """Per parameter entry, the lr of each eager step whose gradient of the
+    entry was at rounding level (|g| < QUIET_GRAD), summed. Adamax moves a
+    weight by up to lr a step whatever its gradient's size, so where the
+    gradient is rounding (a bias that only shifts what a BN subtracts) two
+    runs whose atomics round differently can part by that much; where it
+    is not, they may not. step_fn(step) wraps an eager step to add its
+    share (five foreach ops on the device, no host sync)."""
+
+    def __init__(self, model, sched):
+        self.params = dict(model.named_parameters())
+        self.sums = {k: torch.zeros_like(p) for k, p in self.params.items()}
+        self.sched = sched
+
+    def step_fn(self, step):
+        def run(batch):
+            sched = self.sched
+            lr = sched.base_lrs[0] * sched.lr_lambdas[0](sched.last_epoch)
+            mets = step(batch)
+            quiet = torch._foreach_abs([p.grad for p in self.params.values()])
+            torch._foreach_mul_(quiet, -1.0)
+            torch._foreach_add_(quiet, QUIET_GRAD)
+            torch._foreach_sign_(quiet)  # 1 where |g| < QUIET_GRAD
+            torch._foreach_clamp_min_(quiet, 0.0)
+            torch._foreach_add_(list(self.sums.values()), quiet, alpha=lr)
+            return mets
+
+        return run
+
+    def of(self, name: str) -> torch.Tensor | None:
+        """The slack of a state_dict entry: a parameter's own; a BN's
+        running mean that of the biases of the features it averages,
+        concat(cv2, cv1) as pair_conv lays them out; else None."""
+        if name in self.sums:
+            return self.sums[name].cpu()
+        if name.endswith("bn.mean"):
+            prefix = name[:-len("bn.mean")]
+            parts = [self.sums.get(f"{prefix}{c}.bias") for c in ("cv2", "cv1")]
+            if all(p is not None for p in parts):
+                return torch.cat(parts).cpu()
+        return None
+
+
+def _apart(got: dict, want: dict, slack: _Slack,
+           tol: float) -> tuple[bool, str]:
+    """Captured (got) against eager (want) state dicts of steps with
+    atomics: every entry within tol * (1 + |value|) plus its slack.
+    Returns (within, the readings): where no slack applies, the largest
+    difference over 1 + |value| of the weights and of the buffers (BN
+    stats); where it does, the largest difference over its limit."""
+    ok, worst, quiet, n_quiet = True, {True: 0.0, False: 0.0}, 0.0, 0
+    for k, w in want.items():
+        d = (got[k] - w).abs().float()
+        scale = 1 + w.abs().float()
+        s = slack.of(k)
+        s = torch.zeros_like(d) if s is None else s.reshape(d.shape)
+        limit = tol * scale + s
+        ok &= bool((d <= limit).all())
+        q = s > 0
+        n_quiet += int(q.sum())
+        if (~q).any():
+            is_weight = k in slack.sums
+            worst[is_weight] = max(worst[is_weight],
+                                   float((d / scale)[~q].max()))
+        if q.any():
+            quiet = max(quiet, float((d / limit)[q].max()))
+    return ok, (f"where no gradient was at rounding level, weights "
+                f"{worst[True]:.3e} and BN stats {worst[False]:.3e} x (1 + "
+                f"|value|) apart (limit {tol}); {n_quiet} entries with a "
+                f"rounding-level gradient at {quiet:.3f} of their limit (plus "
+                f"lr a step)")
+
+
+class _Runs:
+    """While active: the Python-level forwards of modules of ``classes``
+    (grad mode on: train, off: eval) and the CUDA graph replays. A kernel
+    wrapper's count moves at a Python-level forward (an eager step, a
+    warm-up run or a capture), not at a replay."""
+
+    def __init__(self, *classes):
+        self.classes = classes
+
+    def __enter__(self):
+        self.train = self.eval = self.replays = 0
+        self.hook = torch.nn.modules.module.register_module_forward_pre_hook(
+            self._seen)
+        self.replay = torch.cuda.CUDAGraph.replay
+        runs = self
+
+        def replay(graph):
+            runs.replays += 1
+            return runs.replay(graph)
+
+        torch.cuda.CUDAGraph.replay = replay
+        return self
+
+    def _seen(self, module, args):
+        if isinstance(module, self.classes):
+            if torch.is_grad_enabled():
+                self.train += 1
+            else:
+                self.eval += 1
+
+    def __exit__(self, *exc):
+        self.hook.remove()
+        torch.cuda.CUDAGraph.replay = self.replay
+
+
+def _spun_ms(fn, reps: int = 3, spin: int = 50 * BUSY_CYCLES) -> float:
+    """Median device ms of fn() between CUDA events, the device held busy
+    (about 0.5 s) while the host enqueues it, with Python's garbage
+    collector held off meanwhile (raises if the spin ends first)."""
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        gc.collect()
+        gc.disable()
+        try:
+            torch.cuda._sleep(spin)
+            start.record()
+            fn()
+            end.record()
+            ended = start.query()
+        finally:
+            gc.enable()
+        if ended:
+            raise AssertionError("the device spin ended before the work was "
+                                 "enqueued")
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _eager_step_ms(model, opt, sched, batch, mean: float, std: float,
+                   reps: int = 3) -> float:
+    """Median device ms of one eager train step: its forward with the
+    loss, its backward and its update (optimizer and schedule), each
+    behind its own spin. An eager step enqueued behind a spin waits for
+    the device once its backward follows its forward (phase 10 prints
+    _waits), so one spin over a whole step cannot keep the host's enqueue
+    out; its parts spun apart do not wait."""
+    from hgnn2_torch.training import train
+
+    held = {}
+
+    def forward():
+        model.train()
+        opt.zero_grad(set_to_none=False)
+        held["loss"] = train._loss_and_metrics(
+            model(batch), batch.y, train._graph_mask(batch), "regression",
+            mean, std)[0]
+
+    parts = (forward, lambda: held["loss"].backward(),
+             lambda: (opt.step(), sched.step()))
+    return float(np.median([sum(_spun_ms(p, reps=1) for p in parts)
+                            for _ in range(reps)]))
+
+
+def _waits(fn, spin: int = 50 * BUSY_CYCLES) -> tuple[bool, float]:
+    """Whether the host waits for the device while it enqueues fn(): fn is
+    called behind a device spin of about 0.5 s, with Python's garbage
+    collector held off; if the spin has ended when fn returns, fn's host
+    side waited for the device. Returns (waited, host ms of the call)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event()
+    gc.collect()
+    gc.disable()
+    try:
+        torch.cuda._sleep(spin)
+        start.record()
+        t0 = time.perf_counter()
+        fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        waited = start.query()
+    finally:
+        gc.enable()
+    torch.cuda.synchronize()
+    return waited, host_ms
+
+
+def _max_rel(a: dict, b: dict) -> float:
+    """max over entries of |a - b| / max |b| (dicts of tensors or numbers)."""
+    return max(float((torch.as_tensor(a[k]).float().cpu()
+                      - torch.as_tensor(v).float().cpu()).abs().max())
+               / max(float(torch.as_tensor(v).abs().max()), 1e-30)
+               for k, v in b.items())
+
+
+def _state(model) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def phase_captured(dev, card: str) -> dict[str, int]:
+    """The compiled-program counterparts as CUDA graphs, on the card, at
+    full width: for each of PHASE10_MODELS, two epochs through
+    make_scanned_epoch / run_epoch_scanned (one graph a step for each
+    shape group, replayed) against the eager run_epoch over the same
+    batches in the same order (groups_in_order, one default_rng(0) each),
+    from the same weights: per-epoch metrics and the parameters after two
+    epochs; evaluate_scanned against evaluate; the captured BN
+    recalibration against the eager one; make_multi_train_step
+    (n_inner=10, one graph) against 10 eager steps. Dense steps are held
+    within DENSE_RTOL; the packed and CCN ones, whose index_add_ atomics
+    round differently from run to run, within TRAIN_LOSS_RTOL (metrics)
+    and, for the weights and stats, by _apart (the eager run of such a
+    model also sums its _Slack). Times: host ms a step (epoch 2, host
+    clock), device ms a step (a group's steps between CUDA events, the
+    device held busy while the host enqueues them), the busy share
+    (device over host, raising above BUSY_MAX), eager and replayed; the
+    graphs, shape groups, capture seconds and the pool's bytes.
+    Returns each kernel's launches in the captured runs (warm-up runs and
+    captures; each replay runs the captured launches again)."""
+    from hgnn2_torch.nn import ccn, models, packed
+    from hgnn2_torch.training import optim, train
+
+    counters = _counters()
+    launches = dict.fromkeys(counters, 0)
+    for name, arch, is_packed, n_layers, hidden, pair in PHASE10_MODELS:
+        recs = _synthetic(N_TRAIN_MOLS if pair else N_MAIN_MOLS)
+        cfg = (_train_cfg(arch, n_layers, str(dev), None) if pair else
+               _main_cfg(str(dev), arch=arch, n_layers=n_layers,
+                         n_features=hidden, packed=is_packed,
+                         order=2 if arch == "lggnn" else 1))
+        if pair:
+            params = _flax_params(5, 2, n_layers, 2 if arch == "ccn1d" else 18,
+                                  5)
+        else:
+            from hgnn2_torch.cli import common
+
+            build = common.build_packed_model if is_packed else common.build_model
+            params = _flax_variables(build(cfg, "regression", 5), 9)
+        t0 = time.perf_counter()
+        model, opt, sched, batches, mean, std = _train_setup(cfg, params,
+                                                             str(dev), recs)
+        twin = copy.deepcopy(model)
+        topt, tsched = optim.build_optimizer(cfg.optim, len(batches),
+                                             twin.parameters())
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        bs = cfg.batch_size
+        classes = (ccn.CCN1D, ccn.CCN2D, models.GNNSimple, models.GNNLineGraph,
+                   packed.PackedGNN)
+
+        # captured: the main path of this phase
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        peak0 = torch.cuda.max_memory_allocated()
+        groups = train.group_stacked_batches(batches)
+        scan_fn = train.make_scanned_epoch(model, opt, sched, "regression",
+                                           mean, std)
+        rng = np.random.default_rng(0)
+        hist_c, host_c = [], []
+        with _Runs(*classes) as runs:
+            for c in counters.values():
+                c.launches = 0
+            for _ in range(TRAIN_EPOCHS):
+                t0 = time.perf_counter()
+                hist_c.append(train.run_epoch_scanned(groups, scan_fn, rng))
+                host_c.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            got = {k: c.launches for k, c in counters.items()}
+        for k, n in got.items():
+            launches[k] += n
+        graphs = scan_fn.graphs
+        mem1 = torch.cuda.memory_allocated()
+        peak1 = torch.cuda.max_memory_allocated()
+
+        # eager, the same order from the same weights
+        n_steps = len(batches)
+        dense = not (pair or is_packed)
+        lists = train.group_batches(batches)
+        rng = np.random.default_rng(0)
+        slack = _Slack(twin, tsched)
+        step_e = None if dense else slack.step_fn(
+            lambda b: train.train_step(twin, topt, tsched, b, "regression",
+                                       mean, std))
+        hist_e, host_e = [], []
+        for _ in range(TRAIN_EPOCHS):
+            t0 = time.perf_counter()
+            hist_e.append(train.run_epoch(twin, topt, tsched,
+                                          train.groups_in_order(lists, rng),
+                                          "regression", mean, std,
+                                          step_fn=step_e))
+            host_e.append(time.perf_counter() - t0)
+
+        rtol = DENSE_RTOL if dense else TRAIN_LOSS_RTOL
+        met_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                      for a, b in zip(hist_c, hist_e) for k in b)
+        sc, se = _state(model), _state(twin)
+        par_err = max(_max_rel({k: sc[k]}, {k: v}) for k, v in se.items())
+        par_abs = max(float((sc[k] - v).abs().max()) for k, v in se.items())
+        bit_equal = all(torch.equal(sc[k], v) for k, v in se.items())
+        tol = (ATOMIC_TOL_BN if next(model.buffers(), None) is not None
+               else ATOMIC_TOL)
+        par_ok, apart = ((par_err <= DENSE_RTOL, f"tolerance {DENSE_RTOL} "
+                          "relative") if dense else _apart(sc, se, slack, tol))
+        print(f"  {name}: {len(groups)} shape group(s) of {[train._group_size(g) for g in groups]} "
+              f"steps of {bs} molecules, set-up {setup_s:.2f} s; captured vs "
+              f"eager from the same weights and order, {TRAIN_EPOCHS} epochs: "
+              f"losses {[(round(a['loss'], 6), round(b['loss'], 6)) for a, b in zip(hist_c, hist_e)]}, "
+              f"epoch metrics max rel err {met_err:.3e} (tolerance {rtol}), "
+              f"parameters and buffers max err / max |value| {par_err:.3e}, "
+              f"max abs err {par_abs:.3e} ({apart}); bit-equal {bit_equal}")
+        if met_err > rtol or not par_ok:
+            raise AssertionError(f"{name}: captured and eager epochs disagree")
+
+        # launches: Python-level at the warm-ups and captures, replays apart
+        per_fwd = {"K1": n_layers, "K3": n_layers, "K2": n_layers - 1,
+                   "K4": n_layers - 1}
+        want = dict.fromkeys(counters, 0)
+        for k in pair:
+            want[k] = per_fwd[k] * (runs.train if k in ("K2", "K4")
+                                    else runs.train + runs.eval)
+        replayed = {k: per_fwd[k] * runs.replays for k in pair}
+        print(f"  {name}: captured run: {len(graphs.graphs)} graph(s), "
+              f"{graphs.replays} replays ({runs.replays} seen; "
+              f"{TRAIN_EPOCHS} x {n_steps} steps), {runs.train} Python-level "
+              f"train forwards (warm-up runs and captures); kernel launches "
+              f"counted {got} (expected {want}); launches replayed "
+              f"(replays x kernels a graph) {replayed}")
+        if got != want or not (graphs.replays == runs.replays
+                                == TRAIN_EPOCHS * n_steps):
+            raise AssertionError(f"{name}: launches {got} != {want} or "
+                                 f"replays {runs.replays}")
+
+        # times, with the card's name and power limit in the run's header
+        big = max(range(len(groups)), key=lambda g: train._group_size(groups[g]))
+        stacked, n_big = groups[big], train._group_size(groups[big])
+        dev_c = _spun_ms(lambda: scan_fn(stacked, np.arange(n_big))) / n_big
+        dev_e = _eager_step_ms(twin, topt, tsched, lists[big][0], mean, std)
+        wait_c = _waits(lambda: scan_fn(stacked, np.arange(n_big)))
+        wait_e = _waits(lambda: train.train_step(
+            twin, topt, tsched, lists[big][0], "regression", mean, std))
+        hc = host_c[-1] / n_steps * 1e3
+        he = host_e[-1] / n_steps * 1e3
+        print(f"  {name} on {card}: replayed {hc:.3f} ms/step host "
+              f"(epoch 2), {dev_c:.3f} ms/step device, busy "
+              f"{dev_c / hc * 100:.1f} %; eager {he:.3f} ms/step "
+              f"host, {dev_e:.3f} ms/step device, busy "
+              f"{dev_e / he * 100:.1f} %; epoch 2 {host_c[-1]:.4f} s vs "
+              f"{host_e[-1]:.4f} s ({n_steps * bs / host_c[-1]:.1f} vs "
+              f"{n_steps * bs / host_e[-1]:.1f} molecules/s); "
+              f"enqueued behind a 0.5 s device spin, {n_big} replayed "
+              f"steps took {wait_c[1]:.1f} ms of host and waited for the "
+              f"device: {wait_c[0]}; one eager step {wait_e[1]:.1f} ms, "
+              f"waited: {wait_e[0]}")
+        if max(dev_c / hc, dev_e / he) > BUSY_MAX:
+            raise AssertionError(f"{name}: device ms a step above the host's")
+        print(f"  {name}: captures {graphs.capture_s:.3f} s (warm-up runs "
+              f"included), pool {graphs.pool_bytes / 2**20:.1f} MiB (its "
+              f"segments after the epochs' captures); device "
+              f"memory allocated {mem0 / 2**20:.1f} -> {mem1 / 2**20:.1f} MiB, "
+              f"peak {peak0 / 2**20:.1f} -> {peak1 / 2**20:.1f} MiB")
+
+        # eval and BN recalibration, captured against eager, same weights
+        ev_c = train.evaluate_scanned(groups, train.make_scanned_eval(
+            model, "regression", mean, std))
+        ev_e = train.evaluate(model, batches, "regression", mean, std)
+        ev_err = max(abs(ev_c[k] - v) / abs(v) for k, v in ev_e.items())
+        recal = copy.deepcopy(model)
+        train.recalibrate_bn(model, groups=groups)
+        train.recalibrate_bn(recal, loader=batches)
+        bn_err = max((_max_rel({k: v}, {k: b}) for (k, v), b in zip(
+            _state(model).items(), _state(recal).values())
+            if k.endswith((".mean", ".std"))), default=0.0)
+        print(f"  {name}: evaluate_scanned vs evaluate {ev_err:.3e} "
+              f"(tolerance {DENSE_RTOL}); recalibrate_bn(groups=) vs the "
+              f"eager pass, max err / max |stat| {bn_err:.3e} (tolerance "
+              f"{BN_RECAL_RTOL}{'; no BN' if pair else ''})")
+        if ev_err > DENSE_RTOL or bn_err > BN_RECAL_RTOL:
+            raise AssertionError(f"{name}: captured eval or recalibration "
+                                 "disagrees")
+
+        # n_inner steps in one graph against as many eager steps
+        one, ten = copy.deepcopy(model), copy.deepcopy(model)
+        runs_ = []
+        for m, multi in ((one, True), (ten, False)):
+            o, s = optim.build_optimizer(cfg.optim, len(batches), m.parameters())
+            if multi:
+                train.make_multi_train_step(m, o, s, "regression", mean, std,
+                                            MULTI_INNER)(batches[0])
+            else:
+                slack = _Slack(m, s)
+                step = slack.step_fn(lambda b: train.train_step(
+                    m, o, s, b, "regression", mean, std))
+                for _ in range(MULTI_INNER):
+                    step(batches[0])
+            runs_.append(_state(m))
+        multi_err = max(_max_rel({k: runs_[0][k]}, {k: v})
+                        for k, v in runs_[1].items())
+        multi_abs = max(float((runs_[0][k] - v).abs().max())
+                        for k, v in runs_[1].items())
+        multi_ok, apart = ((multi_err <= DENSE_RTOL, f"tolerance {DENSE_RTOL} "
+                            "relative") if dense
+                           else _apart(runs_[0], runs_[1], slack, tol))
+        print(f"  {name}: make_multi_train_step(n_inner={MULTI_INNER}) vs "
+              f"{MULTI_INNER} eager steps: max err / max |value| "
+              f"{multi_err:.3e}, max abs err {multi_abs:.3e} ({apart})")
+        if not multi_ok:
+            raise AssertionError(f"{name}: the multi-step graph disagrees")
+        del model, twin, groups, batches, one, ten, recal, scan_fn, graphs
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -1840,10 +2317,14 @@ def main() -> None:
     print("phase 9: serving from files (preprocess cache -> train -> export "
           "-> predict)")
     served_files = phase_serve_files(dev, card)
+
+    print("phase 10: the compiled step and the scanned epoch as CUDA graphs, "
+          "captured against eager")
+    captured = phase_captured(dev, card)
     for key, row in rows.items():  # launches of the main paths' runs
         row["launches"] = (served[key] + trained[key] + packed[key]
                            + main_path[key] + lggnn[key] + packed_train[key]
-                           + served_files[key])
+                           + served_files[key] + captured[key])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "ms_in_run", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps(floor))

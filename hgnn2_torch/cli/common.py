@@ -9,9 +9,12 @@ directory of .xyz files, --data_path), the synthetic QM9-shaped molecules
 or the collinear-points classification set; --ckpt saves a checkpoint
 every epoch, --resume goes on from the latest, --bn_recalib re-estimates
 the BN statistics after training. The flags of the parallel slice (--dp,
---edge_shards) are not accepted; config fields of that slice raise in
-run_experiment or fit. The export and predict entry points load their
-data, target stats and packed checkpoints through the helpers here.
+--edge_shards) and the CCN drivers' --chunks parse as in JAX and take
+their default, 1; any other value raises NotImplementedError in
+run_experiment or build_model, naming the slice it comes with (F for the
+first two, C3 for --chunks). The export and predict entry points load
+their data, target stats and packed checkpoints through the helpers
+here.
 """
 
 from __future__ import annotations
@@ -137,14 +140,15 @@ def build_model(cfg: TrainConfig, kind: str, n_features: int):
             in_features=n_features, n_features=m.n_features,
             n_layers=m.n_layers, dim_output=dim_output, J=m.J,
             order=m.order, compat=compat, generator=gen)
+    if m.vertex_chunks != 1:
+        raise NotImplementedError("vertex_chunks (--chunks) other than 1 "
+                                  "comes with slice C3")
     kw = dict(n_features=n_features, hidden=m.n_features,
               n_layers=m.n_layers, dim_output=dim_output,
               kernel=bool(m.ccn_kernel), generator=gen)
     if m.arch == "ccn1d":
         return ccn_mod.CCN1D(**kw)
     if m.arch == "ccn2d":
-        if m.vertex_chunks > 1:
-            raise NotImplementedError("ccn2d vertex_chunks is not ported")
         return ccn_mod.CCN2D(compat_contractions=m.compat_contractions, **kw)
     raise NotImplementedError(f"arch {m.arch!r} comes with a later slice")
 
@@ -181,8 +185,8 @@ def run_experiment(cfg: TrainConfig, init_params=None):
             "cannot shard batch-wise; scale packed models with "
             "--edge_shards (molecule-aligned sharding)")
     if cfg.dp != 1 or cfg.edge_shards != 1:
-        raise NotImplementedError("--dp/--edge_shards come with the "
-                                  "parallel slice")
+        raise NotImplementedError("--dp/--edge_shards other than 1 come "
+                                  "with the parallel slice (F)")
     logging.basicConfig(level=logging.INFO, force=True)
     logging.getLogger("hgnn2_torch").setLevel(logging.INFO)
     dev = resolve_device(cfg.device)
@@ -298,6 +302,12 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--shuffle", action="store_true")
     p.add_argument("--compat_reference", action="store_true")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel devices; only 1 (the parallel "
+                        "slice F brings more)")
+    p.add_argument("--edge_shards", type=int, default=1,
+                   help="molecule-aligned edge shards; only 1 (the "
+                        "parallel slice F brings more)")
     p.add_argument("--no_cache", action="store_true",
                    help="re-build every batch each epoch instead of "
                         "replaying cached batches (order-only shuffle)")
@@ -351,6 +361,8 @@ def config_from_args(args, arch: str, dataset: str) -> TrainConfig:
     cfg.data.data_path = args.data_path
     cfg.data.task = args.task
     cfg.data.shuffle_split = args.shuffle
+    cfg.dp = args.dp
+    cfg.edge_shards = args.edge_shards
     cfg.data.cache_batches = not args.no_cache
     cfg.data.redeal_every = args.redeal_every
     cfg.scan_epochs = not args.no_scan

@@ -2,9 +2,6 @@
 hgnn2_tpu/profiling.py): a step timer that waits for the device, edges/s
 and bytes/edge accounting for aggregation passes, the card's data-sheet
 peaks, and a torch.profiler trace context.
-
-The scanned-step timer of the JAX package (time_scan_steps) has no
-counterpart until the port has a captured multi-step program.
 """
 
 from __future__ import annotations
@@ -64,6 +61,24 @@ def time_steps(fn: Callable, *args, steps: int = 20,
     t0 = time.perf_counter()
     for _ in range(steps):
         out = fn(*args)
+    force_sync(out)
+    return StepTiming(steps=steps, total_s=time.perf_counter() - t0)
+
+
+def time_scan_steps(step_fn: Callable, batch, steps: int = 20,
+                    warmup: int = 2) -> StepTiming:
+    """Host-clock time of ``steps`` calls of a stateful step function
+    step_fn(batch) -> metrics (training.train.make_multi_train_step, whose
+    state lives in the model and optimizer), after ``warmup`` calls; both
+    ends wait for the device (force_sync). JAX's threads its state through
+    the calls and returns it too."""
+    out = None
+    for _ in range(warmup):
+        out = step_fn(batch)
+    force_sync(out)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        out = step_fn(batch)
     force_sync(out)
     return StepTiming(steps=steps, total_s=time.perf_counter() - t0)
 

@@ -23,6 +23,8 @@ import shutil
 
 import torch
 
+from hgnn2_torch.training import optim
+
 _FILE = "checkpoint.pt"
 
 log = logging.getLogger("hgnn2_torch")
@@ -97,8 +99,8 @@ class Checkpointer:
             return None
         payload, _ = restored
         model.load_state_dict(payload["model"])
-        if optimizer is not None:
-            optimizer.load_state_dict(payload["optimizer"])
+        if optimizer is not None:  # its lr and flags stay this device's
+            optim.load_state(optimizer, payload["optimizer"])
         if scheduler is not None:
             scheduler.load_state_dict(payload["scheduler"])
         return int(payload["epoch"])

@@ -1,17 +1,43 @@
 """Training/eval engine (counterpart of hgnn2_tpu/training/train.py).
 
-PyTorch runs eagerly, so a step is a plain function over a batch on the
-model's device: forward, the loss, backward, optimizer step, schedule
-step. Losses follow the JAX package: MSE on mean/std-normalized targets
-for regression, cross-entropy on 2 logits for classification, both
-weighted by gmask (0 for batch-size padding graphs). Metrics: MAE on the
-normalized scale, and error ratio = MAE / chemical accuracy. Epoch
-metrics are means weighted by each batch's real-graph count.
+A step is the forward, the loss, backward and the optimizer's update on
+one batch, on the model's device. Losses follow the JAX package: MSE on
+mean/std-normalized targets for regression, cross-entropy on 2 logits for
+classification, both weighted by gmask (0 for batch-size padding graphs).
+Metrics: MAE on the normalized scale, and error ratio = MAE / chemical
+accuracy. Epoch metrics are means weighted by each batch's real-graph
+count.
 
-The JAX package's default epoch is one lax.scan per same-shape group of
-cached batches, and its batch order is that of the scan: groups_in_order
-reproduces it, so the port's default epoch visits the batches in the same
-order without a scan.
+The JAX package compiles a step, or a whole same-shape group of steps,
+into one XLA program. The port captures the same bodies as CUDA graphs
+and replays them, under JAX's names:
+
+- make_train_step: one graph a batch shape; each batch is copied into
+  the graph's static buffers;
+- make_multi_train_step: n_inner steps on one batch in one graph;
+- make_scanned_epoch: one graph a step for each stacked shape group
+  (group_stacked_batches). The graph picks its batch from the stack on
+  the device (batch order[pos], then pos += 1) and adds the
+  count-weighted metrics into device sums, so an epoch
+  (run_epoch_scanned, in JAX's order) sends the device one permutation a
+  group and no batch data, and fetches its metrics once;
+- make_scanned_eval / evaluate_scanned and make_bn_recalibration /
+  recalibrate_bn(groups=) do the same for eval and BN recalibration.
+
+On the CPU each body runs eagerly: the same code, without a graph. A
+graph is captured at its first call, after warm-up runs of its body on a
+side stream (which build the kernels, cuBLAS's workspace and the
+optimizer's lazily made state); the warm-up's changes to the parameters,
+the buffers and the optimizer's state are then put back in place, so the
+first replay starts from the state the eager steps would. Everything that
+lives from one replay to the next (parameters, buffers, gradients,
+optimizer state, the stacks, sums and positions) is allocated outside the
+graphs, so the graphs of a model can share one memory pool and replay in
+any order. The learning rate is a device tensor (training.optim) that the
+host's schedule fills between replays.
+
+fit trains through these programs; a capture that fails raises. The eager
+train_step, run_epoch and evaluate stay as library functions.
 """
 
 from __future__ import annotations
@@ -19,19 +45,26 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
+import weakref
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from hgnn2_torch.training import metrics as metrics_lib
+from hgnn2_torch.training import optim
 from hgnn2_torch.training.checkpoint import Checkpointer
 from hgnn2_torch.training.config import TrainConfig
-from hgnn2_torch.training.optim import build_optimizer
 from hgnn2_torch.training.preemption import GracefulShutdown
 from hgnn2_torch.training.prefetch import prefetch
 
 log = logging.getLogger("hgnn2_torch")
+
+WARMUP_RUNS = 2  # eager runs of a body on the side stream before its capture
+
+# one CUDA graph memory pool a model, made at its first capture: a model's
+# graphs replay one at a time, so they share it
+_POOLS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
 
 def _loss_and_metrics(out, y, gmask, kind: str, mean: float, std: float):
@@ -57,19 +90,30 @@ def _graph_mask(batch) -> torch.Tensor:
     return (batch.n_nodes > 0).float()
 
 
-def train_step(model, optimizer, scheduler, batch, kind: str = "regression",
-               mean: float = 0.0, std: float = 1.0) -> dict:
-    """One optimizer step on one batch. Returns the batch's metrics (on
-    the device, from the forward before the update)."""
+def _train_body(model, optimizer, batch, kind: str, mean: float,
+                std: float) -> dict:
+    """One optimizer step's device work (JAX's _train_body), the body of
+    every train program. Gradients are zeroed in place, not dropped, so
+    a captured step keeps writing the same gradient tensors. Returns the
+    batch's metrics from the forward before the update."""
     model.train()
-    optimizer.zero_grad(set_to_none=True)
+    optimizer.zero_grad(set_to_none=False)
     out = model(batch)
     loss, mets = _loss_and_metrics(out, batch.y, _graph_mask(batch), kind,
                                    mean, std)
     loss.backward()
     optimizer.step()
-    scheduler.step()
     return {k: v.detach() for k, v in mets.items()}
+
+
+def train_step(model, optimizer, scheduler, batch, kind: str = "regression",
+               mean: float = 0.0, std: float = 1.0) -> dict:
+    """One eager optimizer step on one batch, then one schedule step.
+    Returns the batch's metrics (on the device, from the forward before
+    the update)."""
+    mets = _train_body(model, optimizer, batch, kind, mean, std)
+    scheduler.step()
+    return mets
 
 
 @torch.inference_mode()
@@ -83,41 +127,400 @@ def eval_step(model, batch, kind: str = "regression", mean: float = 0.0,
     return mets
 
 
+# ---------------------------------------------------------------- batches
+
+
+def _tensor_fields(batch) -> list[str]:
+    return [f.name for f in dataclasses.fields(batch)
+            if isinstance(getattr(batch, f.name), torch.Tensor)]
+
+
+def _batch_key(batch) -> tuple:
+    """What a program of this batch is specialised to: each tensor field's
+    shape and dtype, and every other field's value (a packed batch's
+    n_graphs, which the forward reads; None for an absent field)."""
+    key = []
+    for f in dataclasses.fields(batch):
+        v = getattr(batch, f.name)
+        key.append((f.name, tuple(v.shape), v.dtype)
+                   if isinstance(v, torch.Tensor) else (f.name, v))
+    return tuple(key)
+
+
 def group_batches(batches) -> list[list]:
     """Same-shape batches grouped in first-appearance order (the groups
     the JAX package stacks for its scanned epochs)."""
     groups: dict = {}
     for b in batches:
-        key = tuple((f.name, tuple(getattr(b, f.name).shape))
-                    for f in dataclasses.fields(b)
-                    if isinstance(getattr(b, f.name), torch.Tensor))
-        groups.setdefault(key, []).append(b)
+        groups.setdefault(_batch_key(b), []).append(b)
     return list(groups.values())
 
 
-def groups_in_order(groups: list[list], rng: np.random.Generator | None):
-    """One epoch's batch order as the JAX package's run_epoch_scanned takes
-    it: rng shuffles the group order, then draws each group's permutation
-    in turn; rng=None keeps every order."""
-    group_order = np.arange(len(groups))
+def group_stacked_batches(batches) -> list:
+    """JAX's group_stacked_batches: the same-shape groups of ``batches``
+    in first-appearance order, each one batch whose tensor fields are the
+    group's stacked on a new leading axis, on the batches' device. There
+    is no mesh argument: meshes come with the parallel slice."""
+    return [dataclasses.replace(g[0], **{
+        name: torch.stack([getattr(b, name) for b in g])
+        for name in _tensor_fields(g[0])}) for g in group_batches(batches)]
+
+
+def _group_size(stacked) -> int:
+    return getattr(stacked, _tensor_fields(stacked)[0]).shape[0]
+
+
+def _select(stacked, idx: torch.Tensor):
+    """The batch at idx (a one-element int64 tensor on the device) of a
+    stacked group: one gather a field, no host sync."""
+    return dataclasses.replace(stacked, **{
+        name: getattr(stacked, name).index_select(0, idx)[0]
+        for name in _tensor_fields(stacked)})
+
+
+def _epoch_order(sizes: list[int], rng: np.random.Generator | None):
+    """(group, permutation) pairs of one epoch as JAX's run_epoch_scanned
+    draws them: rng shuffles the group order, then draws each group's
+    permutation in turn; rng=None keeps every order."""
+    group_order = np.arange(len(sizes))
     if rng is not None:
         rng.shuffle(group_order)
     for g in group_order:
-        n = len(groups[g])
-        order = np.arange(n) if rng is None else rng.permutation(n)
+        n = sizes[g]
+        yield g, np.arange(n) if rng is None else rng.permutation(n)
+
+
+def groups_in_order(groups: list[list], rng: np.random.Generator | None):
+    """One epoch's batches of list groups (group_batches) in JAX's scanned
+    order: the eager counterpart of run_epoch_scanned."""
+    for g, order in _epoch_order([len(x) for x in groups], rng):
         for i in order:
             yield groups[g][i]
 
 
+# ------------------------------------------------------------- CUDA graphs
+
+
+class _Graphs:
+    """CUDA graphs of bodies (functions of no argument that read and write
+    fixed tensors), one a key, all in the model's memory pool. On the CPU
+    a call runs the body. capture_s, pool_bytes and replays are for the
+    records."""
+
+    def __init__(self, model: torch.nn.Module, optimizer=None):
+        self.model, self.optimizer = model, optimizer
+        self.cuda = next(model.parameters()).is_cuda
+        self.graphs: dict = {}
+        self.capture_s = 0.0
+        self.replays = 0
+
+    @property
+    def pool_bytes(self) -> int:
+        """Device memory the model's graph pool holds: the size of its
+        segments (shared by every graph of the model; 0 before a
+        capture)."""
+        pool = _POOLS.get(self.model)
+        if pool is None:
+            return 0
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg["segment_pool_id"]) == tuple(pool))
+
+    def _state(self) -> list[torch.Tensor]:
+        ts = [*self.model.parameters(), *self.model.buffers()]
+        if self.optimizer is not None:
+            ts += [v for st in self.optimizer.state.values()
+                   for v in st.values() if isinstance(v, torch.Tensor)]
+        return ts
+
+    def capture(self, key, body, before_run=None) -> None:
+        """Capture body under key unless it is there (CUDA only).
+        before_run() is called before each warm-up run (a scan puts its
+        position back at its first step)."""
+        if not self.cuda or key in self.graphs:
+            return
+        t0 = time.perf_counter()
+        saved = {id(t): t.detach().clone() for t in self._state()}
+        pool = _POOLS.get(self.model)
+        if pool is None:
+            pool = _POOLS[self.model] = torch.cuda.graph_pool_handle()
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            for _ in range(WARMUP_RUNS):
+                if before_run is not None:
+                    before_run()
+                body()
+        torch.cuda.current_stream().wait_stream(stream)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: a prefetch thread may copy batches meanwhile
+        with torch.cuda.graph(graph, pool=pool, stream=stream,
+                              capture_error_mode="thread_local"):
+            out = body()
+        with torch.no_grad():  # tensors the warm-up made start from zero
+            for t in self._state():
+                src = saved.get(id(t))
+                t.copy_(src) if src is not None else t.zero_()
+        self.graphs[key] = (graph, out)
+        self.capture_s += time.perf_counter() - t0
+
+    def __call__(self, key, body):
+        """Run body: replay its graph (captured at the first call) on
+        CUDA, call it on the CPU. Returns its (static) outputs."""
+        if not self.cuda:
+            return body()
+        self.capture(key, body)
+        graph, out = self.graphs[key]
+        graph.replay()
+        self.replays += 1
+        return out
+
+
+def _static_batch(statics: dict, key, batch):
+    """The static buffers of key's graph, holding ``batch``'s values."""
+    static = statics.get(key)
+    if static is None:
+        static = statics[key] = dataclasses.replace(batch, **{
+            name: getattr(batch, name).clone()
+            for name in _tensor_fields(batch)})
+    else:
+        for name in _tensor_fields(batch):
+            getattr(static, name).copy_(getattr(batch, name))
+    return static
+
+
+def make_train_step(model, optimizer, scheduler, kind: str = "regression",
+                    mean: float = 0.0, std: float = 1.0):
+    """JAX's make_train_step: step(batch) -> the batch's metrics. On CUDA
+    one graph a batch shape holds the forward, the loss, the backward and
+    the optimizer's update; each batch is copied into its static buffers
+    and the schedule steps after the replay. On the CPU, train_step.
+    step.graphs holds the graphs."""
+    graphs = _Graphs(model, optimizer)
+    statics: dict = {}
+
+    def step(batch) -> dict:
+        if not graphs.cuda:
+            return train_step(model, optimizer, scheduler, batch, kind, mean,
+                              std)
+        key = _batch_key(batch)
+        static = _static_batch(statics, key, batch)
+        mets = graphs(key, lambda: _train_body(model, optimizer, static,
+                                               kind, mean, std))
+        scheduler.step()
+        return {k: v.clone() for k, v in mets.items()}
+
+    step.graphs = graphs
+    return step
+
+
+def make_multi_train_step(model, optimizer, scheduler,
+                          kind: str = "regression", mean: float = 0.0,
+                          std: float = 1.0, n_inner: int = 10):
+    """JAX's make_multi_train_step: step(batch) runs n_inner optimizer
+    steps on the batch and returns the last one's metrics; on CUDA in one
+    graph. Each inner step takes the schedule's lr at its own count: the
+    host sends the n_inner values before the replay, the graph copies
+    each into the optimizer's lr tensor before its step, and the schedule
+    then advances n_inner steps. The optimizer must come from
+    build_optimizer (a tensor lr on CUDA)."""
+    graphs = _Graphs(model, optimizer)
+    statics: dict = {}
+    held: dict = {}
+
+    def step(batch) -> dict:
+        if not graphs.cuda:
+            for _ in range(n_inner):
+                mets = train_step(model, optimizer, scheduler, batch, kind,
+                                  mean, std)
+            return mets
+        key = _batch_key(batch)
+        static = _static_batch(statics, key, batch)
+        values = torch.tensor(
+            [[base * fn(scheduler.last_epoch + j) for j in range(n_inner)]
+             for base, fn in zip(scheduler.base_lrs, scheduler.lr_lambdas)],
+            dtype=torch.float32).pin_memory()
+        if "lrs" not in held:
+            held["lrs"] = torch.empty(values.shape, device=static.y.device)
+        lrs = held["lrs"]
+        lrs.copy_(values, non_blocking=True)
+
+        def body():
+            for j in range(n_inner):
+                for i, g in enumerate(optimizer.param_groups):
+                    g["lr"].copy_(lrs[i, j])
+                mets = _train_body(model, optimizer, static, kind, mean, std)
+            return mets
+
+        mets = graphs(key, body)
+        for _ in range(n_inner):
+            scheduler.step()
+        return {k: v.clone() for k, v in mets.items()}
+
+    step.graphs = graphs
+    return step
+
+
+class _Scan:
+    """The device side of one stacked group's steps: the group's order,
+    the position of the next step, and the sums its steps add into."""
+
+    def __init__(self, stacked):
+        self.stacked = stacked
+        self.n = _group_size(stacked)
+        dev = getattr(stacked, _tensor_fields(stacked)[0]).device
+        self.order = torch.arange(self.n, device=dev)
+        self.pos = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.names: list[str] = []
+        self.sums: list[torch.Tensor] | None = None
+
+    def batch(self):
+        """The step's batch, order[pos] of the stack; pos += 1."""
+        idx = self.order.index_select(0, self.pos)
+        self.pos.add_(1)
+        return _select(self.stacked, idx)
+
+    def add(self, values: list[torch.Tensor]) -> None:
+        if self.sums is None:  # the first run, eager (a warm-up on CUDA)
+            self.sums = [torch.zeros_like(v) for v in values]
+        torch._foreach_add_(self.sums, values)
+
+
+def _scanned(graphs: _Graphs, body, after_step=None):
+    """run(stacked, order=None) -> the group's _Scan after one run of body
+    a batch of the stacked group, in ``order`` (a permutation of the
+    group, default the stacked order): the sums and position are reset,
+    the order sent to the device once, and body replayed (called on the
+    CPU) once a step, each followed by after_step() on the host."""
+    scans: dict = {}
+
+    def run(stacked, order=None) -> _Scan:
+        scan = scans.get(id(stacked))
+        if scan is None:
+            scan = scans[id(stacked)] = _Scan(stacked)
+
+        def step():
+            body(scan)
+
+        graphs.capture(id(stacked), step, scan.pos.zero_)
+        if order is not None:
+            src = torch.from_numpy(np.asarray(order, dtype=np.int64))
+            if scan.order.is_cuda:
+                src = src.pin_memory()
+            scan.order.copy_(src, non_blocking=scan.order.is_cuda)
+        scan.pos.zero_()
+        if scan.sums is not None:
+            torch._foreach_zero_(scan.sums)
+        for _ in range(scan.n):
+            graphs(id(stacked), step)
+            if after_step is not None:
+                after_step()
+        return scan
+
+    run.graphs = graphs
+    return run
+
+
+def make_scanned_epoch(model, optimizer, scheduler, kind: str = "regression",
+                       mean: float = 0.0, std: float = 1.0):
+    """JAX's make_scanned_epoch: run(stacked, order) -> the metric SUMS of
+    one stacked group's optimizer steps in ``order``, each weighted by its
+    batch's real-graph count, plus "count" (device tensors). On CUDA one
+    graph a group: it selects the step's batch from the stack on the
+    device, runs the step and adds the weighted metrics into the sums;
+    the schedule steps on the host after each replay. run.graphs holds
+    the graphs."""
+
+    def body(scan: _Scan) -> None:
+        batch = scan.batch()
+        mets = _train_body(model, optimizer, batch, kind, mean, std)
+        count = _graph_mask(batch).sum()
+        scan.names = [*mets, "count"]
+        scan.add([torch.stack([*(v * count for v in mets.values()), count])])
+
+    scanned = _scanned(_Graphs(model, optimizer), body, scheduler.step)
+
+    def run(stacked, order) -> dict:
+        scan = scanned(stacked, order)
+        return dict(zip(scan.names, scan.sums[0]))
+
+    run.graphs = scanned.graphs
+    return run
+
+
+def run_epoch_scanned(groups: list, scan_fn, rng=None) -> dict[str, float]:
+    """JAX's run_epoch_scanned: one training epoch over stacked groups
+    (group_stacked_batches) through scan_fn (make_scanned_epoch), rng
+    shuffling the group order and each group's batch order as JAX's does
+    (rng=None keeps both). Metrics are means weighted by real-graph count,
+    fetched from the device once."""
+    sums: dict = {}
+    for g, order in _epoch_order([_group_size(s) for s in groups], rng):
+        for k, v in scan_fn(groups[g], order).items():
+            sums[k] = v if k not in sums else sums[k] + v
+    if not sums:
+        return {}
+    values = dict(zip(sums, torch.stack(list(sums.values())).tolist()))
+    denom = max(values.pop("count"), 1.0)
+    return {k: v / denom for k, v in values.items()}
+
+
+def make_scanned_eval(model, kind: str = "regression", mean: float = 0.0,
+                      std: float = 1.0):
+    """JAX's make_scanned_eval: run(stacked) -> the group's eval metric
+    sums, each batch's weighted by its real-graph count, plus "count"
+    (float64 device tensors; JAX sums them on the host in float64). On
+    CUDA one eval-mode graph a group."""
+
+    def body(scan: _Scan) -> None:
+        with torch.no_grad():
+            model.eval()
+            batch = scan.batch()
+            gmask = _graph_mask(batch)
+            _, mets = _loss_and_metrics(model(batch), batch.y, gmask, kind,
+                                        mean, std)
+            n = gmask.sum()
+            scan.names = [*mets, "count"]
+            scan.add([torch.stack([*(v * n for v in mets.values()),
+                                   n]).double()])
+
+    scanned = _scanned(_Graphs(model), body)
+
+    def run(stacked) -> dict:
+        scan = scanned(stacked)
+        return dict(zip(scan.names, scan.sums[0]))
+
+    run.graphs = scanned.graphs
+    return run
+
+
+def evaluate_scanned(groups: list, scan_eval_fn) -> dict[str, float]:
+    """JAX's evaluate_scanned: evaluate over stacked groups, one program
+    a group and ONE host fetch for all groups' metrics."""
+    parts = [scan_eval_fn(stacked) for stacked in groups]
+    if not parts:
+        return {}
+    names = list(parts[0])
+    rows = torch.stack([torch.stack([p[k] for k in names])
+                        for p in parts]).tolist()
+    sums = {k: sum(row[i] for row in rows) for i, k in enumerate(names)}
+    total = max(sums.pop("count"), 1.0)
+    return {k: v / total for k, v in sums.items()}
+
+
 def run_epoch(model, optimizer, scheduler, batches, kind: str = "regression",
-              mean: float = 0.0, std: float = 1.0) -> dict[str, float]:
-    """One training epoch over ``batches``. Metrics stay on the device
-    until the epoch ends; each batch weighs by its real-graph count."""
+              mean: float = 0.0, std: float = 1.0,
+              step_fn=None) -> dict[str, float]:
+    """One training epoch over ``batches``, step by step: step_fn(batch)
+    (make_train_step) or, by default, the eager train_step. Metrics stay
+    on the device until the epoch ends; each batch weighs by its
+    real-graph count."""
     device_mets: list = []
     device_counts: list = []
     for batch in batches:
-        device_mets.append(train_step(model, optimizer, scheduler, batch,
-                                      kind, mean, std))
+        device_mets.append(
+            step_fn(batch) if step_fn is not None else
+            train_step(model, optimizer, scheduler, batch, kind, mean, std))
         device_counts.append(_graph_mask(batch).sum())
     if not device_mets:
         return {}
@@ -146,6 +549,36 @@ def evaluate(model, loader, kind: str = "regression", mean: float = 0.0,
     return {k: v / max(total, 1.0) for k, v in zip(sums, values)}
 
 
+def _recal_body(model, batch, bufs: list, scale: float) -> list:
+    """One batch's own BN statistics: a no_grad train-mode forward against
+    zeroed running stats, each stat / (1 - momentum)."""
+    with torch.no_grad():
+        model.train()
+        torch._foreach_zero_(bufs)
+        model(batch)
+        return torch._foreach_mul(bufs, scale)
+
+
+def make_bn_recalibration(model, momentum: float = 0.1):
+    """JAX's make_bn_recalibration: run(stacked) -> (the sums over the
+    group's batches of each buffer's own statistic, the batch count); on
+    CUDA one graph a group."""
+    bufs = list(model.buffers())
+    scale = 1.0 / (1.0 - momentum)
+
+    def body(scan: _Scan) -> None:
+        scan.add(_recal_body(model, scan.batch(), bufs, scale))
+
+    scanned = _scanned(_Graphs(model), body)
+
+    def run(stacked):
+        scan = scanned(stacked)
+        return scan.sums, scan.n
+
+    run.graphs = scanned.graphs
+    return run
+
+
 def recalibrate_bn(model: torch.nn.Module, groups=None, loader=None,
                    momentum: float = 0.1) -> torch.nn.Module:
     """Replaces the BN running statistics with the average of every
@@ -159,38 +592,48 @@ def recalibrate_bn(model: torch.nn.Module, groups=None, loader=None,
     x its own statistics; those are scaled by 1 / (1 - momentum), summed
     and divided by the batch count, the JAX package's arithmetic.
 
-    groups: lists of batches (fit's shape groups); loader: any iterable
-    of batches. Give one of the two. A model without buffers (no BN) is
-    left as it is."""
-    bufs = dict(model.named_buffers())
+    groups: stacked groups (group_stacked_batches), each one program
+    (make_bn_recalibration); loader: any iterable of batches, run eagerly.
+    Give one of the two. A model without buffers (no BN) is left as it
+    is."""
+    bufs = list(model.buffers())
     if not bufs:
         return model
-    batches = (b for g in groups for b in g) if groups is not None else loader
-    scale = 1.0 / (1.0 - momentum)
-    totals = {k: torch.zeros_like(v) for k, v in bufs.items()}
-    count = 0
-    model.train()
-    with torch.no_grad():
-        for batch in batches:
-            for v in bufs.values():
-                v.zero_()
-            model(batch)
-            for k, v in bufs.items():
-                totals[k] += v * scale
-            count += 1
-        if count:
-            for k, v in bufs.items():
-                v.copy_(totals[k] / count)
+    totals, count = None, 0
+    if groups is not None:
+        recal = make_bn_recalibration(model, momentum)
+        parts = [recal(stacked) for stacked in groups]
+    else:
+        scale = 1.0 / (1.0 - momentum)
+        parts = [(_recal_body(model, b, bufs, scale), 1) for b in loader]
+    for sums, n in parts:
+        totals = (list(sums) if totals is None
+                  else torch._foreach_add(totals, sums))
+        count += n
+    if count:
+        with torch.no_grad():
+            for v, t in zip(bufs, totals):
+                v.copy_(t / count)
     return model.eval()
 
 
-def _eval_row(row: dict, model, eval_loaders, kind, mean, std, accuracy):
-    """Adds each eval split's metrics (and error ratio) to row."""
+# -------------------------------------------------------------------- fit
+
+
+def _eval_row(row: dict, model, eval_loaders, kind, mean, std, accuracy,
+              eval_groups: dict, scan_eval_fn):
+    """Adds each eval split's metrics (and error ratio) to row: through
+    scan_eval_fn over its stacked groups where it has them, else
+    evaluate over its loader."""
     for split in ("valid", "test"):
         loader = eval_loaders[split]
-        if loader is None or len(loader) == 0:
+        if split in eval_groups:
+            split_m = evaluate_scanned(eval_groups[split], scan_eval_fn)
+        elif loader is not None and len(loader) > 0:
+            split_m = evaluate(model, loader, kind, mean, std)
+        else:
             continue
-        for k, v in evaluate(model, loader, kind, mean, std).items():
+        for k, v in split_m.items():
             row[f"{split}_{k}"] = v
             if k == "mae" and accuracy:
                 row[f"{split}_error_ratio"] = v / accuracy
@@ -213,6 +656,17 @@ def fit(
     train batch. The model moves to the device of the train batches.
     Returns (model, history): one dict of metrics per epoch run.
 
+    With cfg.scan_epochs (the default) and a loader of cached batches
+    (batches()), as JAX's fit: the train and eval batches are stacked by
+    shape (group_stacked_batches), each epoch runs run_epoch_scanned in
+    JAX's order (shape groups and their members shuffled by one
+    default_rng(cfg.seed), unless the loader does not shuffle), and the
+    eval splits and BN recalibration run over their groups. Otherwise
+    each epoch steps through the loader (make_train_step), the next
+    batches built while a step runs. On CUDA every program is a CUDA
+    graph, captured after the checkpoint restore; a re-deal of the
+    batches captures the new groups.
+
     checkpointer saves the model, optimizer and schedule after every
     epoch; with cfg.resume the run starts from its latest checkpoint, at
     the epoch after it. As in the JAX package, a resumed run's shuffle
@@ -232,8 +686,8 @@ def fit(
     else:  # as in the JAX package, this advances a shuffling loader's epoch
         sample = next(iter(train_loader))
     model.to(sample.x.device)
-    optimizer, scheduler = build_optimizer(cfg.optim, steps_per_epoch,
-                                           model.parameters())
+    optimizer, scheduler = optim.build_optimizer(cfg.optim, steps_per_epoch,
+                                                 model.parameters())
     start_epoch = 0
     if checkpointer is not None and cfg.resume:
         restored = checkpointer.restore(model, optimizer, scheduler)
@@ -241,21 +695,34 @@ def fit(
             start_epoch = restored
             log.info("resumed from the checkpoint of epoch %d", start_epoch)
 
-    # order-level shuffling of the grouped epochs; honour the cached
+    # the programs are made after the restore, which replaces the
+    # optimizer's state tensors
+    # order-level shuffling of the scanned epochs; honour the cached
     # loader's shuffle setting (off -> deterministic batch order)
     shuffle_rng = (np.random.default_rng(cfg.seed)
                    if getattr(train_loader, "shuffle", True) else None)
 
     def build_train_groups():
-        groups = group_batches(train_loader.batches())
-        train_loader.release()  # the groups hold the batches now
+        groups = group_stacked_batches(train_loader.batches())
+        train_loader.release()  # the stacks hold the batches now
         return groups
 
-    groups = None
+    groups = scan_fn = scan_eval_fn = None
+    eval_groups: dict = {}
     if cfg.scan_epochs and hasattr(train_loader, "batches"):
         groups = build_train_groups() or None
-        if groups:
-            log.info("grouped epochs: %d batch shape group(s)", len(groups))
+    if groups:
+        scan_fn = make_scanned_epoch(model, optimizer, scheduler, kind, mean,
+                                     std)
+        scan_eval_fn = make_scanned_eval(model, kind, mean, std)
+        for split, loader in eval_loaders.items():
+            if loader is not None and hasattr(loader, "batches"):
+                split_bs = loader.batches()
+                if split_bs:
+                    eval_groups[split] = group_stacked_batches(split_bs)
+                    loader.release()
+        log.info("scanned epochs: %d batch shape group(s)", len(groups))
+    step_fn = make_train_step(model, optimizer, scheduler, kind, mean, std)
     log.info("training: %d epochs x %d steps/epoch", cfg.epochs - start_epoch,
              steps_per_epoch)
     run_err = metrics_lib.RunningAverage()
@@ -264,25 +731,26 @@ def fit(
         for epoch in range(start_epoch, cfg.epochs):
             t0 = time.time()
             if cfg.optim.reset_each_epoch:
-                # optax's tx.init: fresh moments and a schedule back at 0
-                optimizer, scheduler = build_optimizer(
-                    cfg.optim, steps_per_epoch, model.parameters())
-            if groups is not None:
+                optim.reset(optimizer, scheduler)  # optax's tx.init
+            if groups:
                 if (getattr(train_loader, "redeal_every", 0)
                         and train_loader.maybe_redeal()):
                     groups = build_train_groups()
+                    scan_fn = make_scanned_epoch(model, optimizer, scheduler,
+                                                 kind, mean, std)
                     log.info("epoch %d: re-dealt batches into %d group(s)",
                              epoch + 1, len(groups))
-                batches = groups_in_order(groups, shuffle_rng)
+                train_m = run_epoch_scanned(groups, scan_fn, shuffle_rng)
             else:  # stepwise: the next batches built while a step runs
-                batches = prefetch(train_loader)
-            train_m = run_epoch(model, optimizer, scheduler, batches, kind,
-                                mean, std)
+                train_m = run_epoch(model, optimizer, scheduler,
+                                    prefetch(train_loader), kind, mean, std,
+                                    step_fn=step_fn)
             if "mae" in train_m:
                 run_err.update(train_m["mae"])
             row = {f"train_{k}": v for k, v in train_m.items()}
             if (epoch + 1) % cfg.eval_every == 0:
-                _eval_row(row, model, eval_loaders, kind, mean, std, accuracy)
+                _eval_row(row, model, eval_loaders, kind, mean, std, accuracy,
+                          eval_groups, scan_eval_fn)
             row["epoch_time_s"] = time.time() - t0
             log.info("epoch %d done in %.1fs: %s", epoch + 1,
                      row["epoch_time_s"],
@@ -301,9 +769,10 @@ def fit(
                 break
     if cfg.bn_recalibrate and next(model.buffers(), None) is not None:
         recalibrate_bn(model, groups=groups,
-                       loader=None if groups is not None else train_loader)
+                       loader=None if groups else train_loader)
         row = dict(history[-1]) if history else {}
-        _eval_row(row, model, eval_loaders, kind, mean, std, accuracy)
+        _eval_row(row, model, eval_loaders, kind, mean, std, accuracy,
+                  eval_groups, scan_eval_fn)
         row["bn_recalibrated"] = 1.0
         log.info("bn recalibrated over %d train batches: %s", steps_per_epoch,
                  {k: round(v, 4) for k, v in row.items()

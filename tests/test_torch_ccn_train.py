@@ -179,11 +179,11 @@ def test_fit_epoch_order_matches_jax(monkeypatch, scan):
         batching.CCNLoader(recs, 5, task=0, device="cpu"), shuffle=True, seed=7)
     seen = []
 
-    def record(model, opt, sched, batch, *args):
+    def record(model, opt, batch, *args):  # every train program's body
         seen.append(batch.y.numpy())
         return {"loss": torch.zeros(())}
 
-    monkeypatch.setattr(train, "train_step", record)
+    monkeypatch.setattr(train, "_train_body", record)
     cfg = TrainConfig(batch_size=5, epochs=3, seed=7, scan_epochs=scan)
     train.fit(ccn.CCN1D(n_features=5, hidden=2, n_layers=1),
               lambda split: loader if split == "train" else None, cfg)

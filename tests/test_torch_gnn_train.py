@@ -251,3 +251,23 @@ def test_bench_torch_runs_on_cpu():
     assert result["tf32"] is False and result["steps_per_epoch"] == 4
     assert result["value"] > 0 and result["device_upper_bound_mol_per_s"] > 0
     assert "vs_baseline" not in result
+
+
+def test_bench_torch_ccn_runs_on_cpu():
+    """bench_torch.main --arch ccn1d at a tiny size: CCN-1D (L=20, h=2)
+    through the same scanned epochs, eager epochs and one-batch bound,
+    one JSON line with the shape groups and the eager rate beside the
+    headline."""
+    out = io.StringIO()
+    with redirect_stdout(out):
+        result = bench_torch.main(["--arch", "ccn1d", "--device", "cpu",
+                                   "--molecules", "60", "--batch", "16",
+                                   "--epochs", "1"])
+    lines = out.getvalue().splitlines()
+    assert len(lines) == 1 and json.loads(lines[0]) == result
+    assert result["metric"] == "ccn1d_qm9_L20_train_throughput_end_to_end"
+    assert result["steps_per_epoch"] == 4 and result["batch"] == 16
+    assert result["shape_groups"] >= 1 and result["graphs"] == 0
+    assert result["value"] > 0 and result["eager_value"] > 0
+    assert result["device_upper_bound_mol_per_s"] > 0
+

@@ -178,11 +178,11 @@ def test_fit_epoch_order_over_interleaved_groups_matches_jax(monkeypatch, scan):
     assert len(runs) > len(set(shapes)) >= 3  # groups interleave
     seen = []
 
-    def record(model, opt, sched, batch, *args):
+    def record(model, opt, batch, *args):  # every train program's body
         seen.append(batch.y.numpy())
         return {"loss": torch.zeros(())}
 
-    monkeypatch.setattr(train, "train_step", record)
+    monkeypatch.setattr(train, "_train_body", record)
     cfg = TrainConfig(batch_size=2, epochs=3, seed=7, scan_epochs=scan)
     train.fit(models.GNNLineGraph(in_features=5, n_features=1, n_layers=2),
               lambda split: loader if split == "train" else None, cfg)

@@ -113,11 +113,11 @@ def test_fit_epoch_order_of_one_packed_group_matches_jax(monkeypatch):
     assert len(train.group_batches(loader.batches())) == 1
     seen = []
 
-    def record(model, opt, sched, batch, *args):
+    def record(model, opt, batch, *args):  # every train program's body
         seen.append(batch.y.numpy())
         return {"loss": torch.zeros(())}
 
-    monkeypatch.setattr(train, "train_step", record)
+    monkeypatch.setattr(train, "_train_body", record)
     cfg = TrainConfig(batch_size=4, epochs=3, seed=7)
     train.fit(packed.PackedGNN(n_features=1, n_layers=2, in_features=5),
               lambda split: loader if split == "train" else None, cfg)

@@ -240,7 +240,8 @@ def test_recalibrate_bn_matches_jax(layout):
         for path, src in (
             ("groups", dict(groups=jtrain.group_stacked_batches(ref))),
             ("loader", dict(loader=ref)))}
-    for path, src in (("groups", dict(groups=groups)), ("loader", dict(loader=mine))):
+    stacked = train.group_stacked_batches(mine)
+    for path, src in (("groups", dict(groups=stacked)), ("loader", dict(loader=mine))):
         model.load_state_dict(convert.variables_from_flax(variables))
         assert train.recalibrate_bn(model, **src) is model and not model.training
         got = dict(_leaves(convert.variables_to_flax(
