@@ -112,13 +112,28 @@ Phases, each of which raises on failure (nothing is caught):
               (10 steps, one graph) against 10 eager steps; host and
               device ms a step and the busy share, eager and replayed;
               graphs, shape groups, capture seconds and pool bytes.
+ 11. sharded  molecule-aligned sharded training: PackedGNN(L=15, h=1) over
+              4 shards and over 2 dp x 2 shards, PackedLGGNN(L=5, h=1,
+              order 2) over 4 shards (2,048 molecules a step), CCN1D(L=20,
+              h=2) and CCN2D(L=2, h=2) over 4 shards with --ccn_kernel
+              (1,024 a step), every rank on the card, each trained through
+              cli.common.run_experiment for 2 epochs from seeded
+              flax-layout weights (CCN: K1-K4 launches held to the layers x
+              the Python-level forwards); the first steps against the
+              CPU's sharded run, the first step against the unsharded
+              model's on the same molecules (losses, gradients, BN stats),
+              replayed against eager sharded steps (phase 10's rules), for
+              CCN the kernels against the plain path on the card; host and
+              device ms a step, busy share, molecules/s, and the
+              flattened capacities against the unsharded batch's.
 
-Phases 4 and 6-10 train through fit, whose epochs replay CUDA graphs:
-a kernel wrapper's launch count moves when Python calls it (an eager
-step, a graph's warm-up runs and its capture), not when a graph replays
-the launch it recorded. Phases 4 and 10 hold the counts to the layers
-times the Python-level forwards and print the replayed launches
-(replays times the kernels a graph holds) beside them.
+Phases 4 and 6-10 train through fit and phase 11 through fit_sharded,
+whose epochs replay CUDA graphs: a kernel wrapper's launch count moves
+when Python calls it (an eager step, a graph's warm-up runs and its
+capture), not when a graph replays the launch it recorded. Phases 4, 10
+and 11 hold the counts to the layers times the Python-level forwards;
+phases 4 and 10 print the replayed launches (replays times the kernels a
+graph holds) beside them.
 
 The last three lines are JSON: the launch floor, each kernel, and
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
@@ -836,11 +851,17 @@ def _compare_steps(name: str, cfg, params, records, dev="cuda",
     losses, step-0 gradients and the BN running stats after step 0. Each
     gradient tensor is held against its own largest |gradient|, or
     grad_floor x the model's largest where that is more."""
-    card_losses, card_grads, card_stats = _first_steps(cfg, params, dev,
-                                                       records)
     cpu_cfg = dataclasses.replace(cfg, device="cpu")
-    cpu_losses, cpu_grads, cpu_stats = _first_steps(cpu_cfg, params, "cpu",
-                                                    records)
+    _hold_steps(name, _first_steps(cfg, params, dev, records),
+                _first_steps(cpu_cfg, params, "cpu", records), grad_floor)
+
+
+def _hold_steps(name: str, card, cpu, grad_floor: float = 0.0,
+                what: str = "card", against: str = "CPU") -> None:
+    """Two runs' first steps, (losses, step-0 gradients, BN stats after
+    step 0) each, held as _compare_steps says."""
+    card_losses, card_grads, card_stats = card
+    cpu_losses, cpu_grads, cpu_stats = cpu
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
     top = max(float(g.abs().max()) for g in cpu_grads.values())
     scale = {k: max(float(g.abs().max()), grad_floor * top) or 1e-30
@@ -855,14 +876,15 @@ def _compare_steps(name: str, cfg, params, records, dev="cuda",
     stats_note = (f"; BN running stats after step 0 max err / max |stat| "
                   f"{stat_err:.3e} over {len(cpu_stats)} tensors (tolerance "
                   f"{BN_STATS_RTOL})" if cpu_stats else "")
-    print(f"  {name} first {CPU_STEPS} steps, card {card_losses} vs CPU "
-          f"{cpu_losses}: max rel loss err {loss_err:.3e} (tolerance "
+    print(f"  {name} first {len(card_losses)} steps, {what} {card_losses} vs "
+          f"{against} {cpu_losses}: max rel loss err {loss_err:.3e} (tolerance "
           f"{TRAIN_LOSS_RTOL}); step-0 gradients max err / max |grad| "
           f"{grad_err:.3e} over {len(cpu_grads)} tensors (tolerance "
           f"{TRAIN_GRAD_RTOL}{floor_note}){stats_note}")
     if (loss_err > TRAIN_LOSS_RTOL or grad_err > TRAIN_GRAD_RTOL
             or stat_err > BN_STATS_RTOL):
-        raise AssertionError(f"{name}: card and CPU training steps disagree")
+        raise AssertionError(f"{name}: {what} and {against} training steps "
+                             "disagree")
 
 
 def _kernels_by_part(parts) -> str:
@@ -1991,13 +2013,14 @@ def _spun_ms(fn, reps: int = 3, spin: int = 50 * BUSY_CYCLES) -> float:
 
 
 def _eager_step_ms(model, opt, sched, batch, mean: float, std: float,
-                   reps: int = 3) -> float:
+                   reps: int = 3, loss_of=None) -> float:
     """Median device ms of one eager train step: its forward with the
     loss, its backward and its update (optimizer and schedule), each
     behind its own spin. An eager step enqueued behind a spin waits for
     the device once its backward follows its forward (phase 10 prints
     _waits), so one spin over a whole step cannot keep the host's enqueue
-    out; its parts spun apart do not wait."""
+    out; its parts spun apart do not wait. loss_of(batch), when given, is
+    the forward with the loss (a sharded step's)."""
     from hgnn2_torch.training import train
 
     held = {}
@@ -2005,9 +2028,10 @@ def _eager_step_ms(model, opt, sched, batch, mean: float, std: float,
     def forward():
         model.train()
         opt.zero_grad(set_to_none=False)
-        held["loss"] = train._loss_and_metrics(
-            model(batch), batch.y, train._graph_mask(batch), "regression",
-            mean, std)[0]
+        held["loss"] = (loss_of(batch) if loss_of is not None else
+                        train._loss_and_metrics(
+                            model(batch), batch.y, train._graph_mask(batch),
+                            "regression", mean, std)[0])
 
     parts = (forward, lambda: held["loss"].backward(),
              lambda: (opt.step(), sched.step()))
@@ -2262,6 +2286,323 @@ def phase_captured(dev, card: str) -> dict[str, int]:
     return launches
 
 
+# phase 11's runs: (name, arch, model fields, edge_shards, dp, flax seed)
+PHASE11_RUNS = (
+    ("PackedGNN L=15 h=1 J=1, 4 shards", "gnn", {}, 4, 1, 21),
+    ("PackedGNN L=15 h=1 J=1, 2 dp x 2 shards", "gnn", {}, 2, 2, 22),
+    ("PackedLGGNN L=5 h=1 J=1 order 2, 4 shards", "lggnn",
+     dict(n_layers=5, order=2), 4, 1, 23),
+    ("CCN1D L=20 h=2, 4 shards", "ccn1d", {}, 4, 1, 24),
+    ("CCN2D L=2 h=2, 4 shards", "ccn2d", {}, 4, 1, 25),
+)
+CCN_LAYERS = {"ccn1d": 20, "ccn2d": 2}
+CCN_PAIRS = {"ccn1d": ("K1", "K2"), "ccn2d": ("K3", "K4")}
+
+
+def _sharded_cfg(arch: str, model_kw: dict, es: int, dp: int, device: str,
+                 log_path: str | None = None):
+    """Phase 11's configuration: phase 8's packed models at 2,048
+    molecules a step, or phase 4's CCN models (h = 2, 1,024 a step) with
+    the kernels asked for, over dp x es molecule-aligned shards."""
+    if arch in CCN_LAYERS:
+        cfg = _train_cfg(arch, CCN_LAYERS[arch], device, log_path)
+        cfg.model.ccn_kernel = True
+    else:
+        cfg = _main_cfg(device, log_path, arch=arch, packed=True, **model_kw)
+    cfg.edge_shards, cfg.dp = es, dp
+    return cfg
+
+
+def _sharded_params(cfg, seed: int, F_in: int) -> dict:
+    from hgnn2_torch.cli import common
+
+    if cfg.model.arch in CCN_LAYERS:
+        return _flax_params(F_in, 2, cfg.model.n_layers,
+                            2 if cfg.model.arch == "ccn1d" else 18, seed)
+    return _flax_variables(common.build_packed_model(cfg, "regression", F_in),
+                           seed)
+
+
+class _Sharded:
+    """fit_sharded's pieces on ``device``, from the flax params: the
+    model (its BN over the grid's axes), the optimizer and schedule, the
+    train split's sharded loader (shuffling with the run's seed), the
+    sharded step, the axes, mean and std."""
+
+    def __init__(self, cfg, params, device, records, loader=None):
+        from hgnn2_torch import convert
+        from hgnn2_torch.cli import common
+        from hgnn2_torch.data import stats, synthetic
+        from hgnn2_torch.parallel import spmd
+        from hgnn2_torch.training import optim, sharded
+
+        ts = stats.compute_target_stats(records)
+        self.mean, self.std = float(ts.mean[0]), float(ts.std[0])
+        self.train_recs = synthetic.split_80_10_10(records, seed=cfg.seed)[0]
+        n_data = max(cfg.dp, 1)
+        self.axes = spmd.AXES if n_data > 1 else ("edge",)
+        self.lead = len(self.axes)
+        F_in = records[0].x.shape[1]
+        self.is_ccn = cfg.model.arch in CCN_LAYERS
+        if self.is_ccn:
+            self.model = common.build_model(cfg, "regression", F_in)
+            self.model.load_state_dict(convert.ccn_params_from_flax(params))
+            cls = sharded.ShardedCCNLoader
+        else:
+            self.model = common.build_packed_model(
+                cfg, "regression", F_in,
+                bn_axis=self.axes if n_data > 1 else "edge")
+            self.model.load_state_dict(convert.packed_variables_from_flax(params))
+            cls = sharded.ShardedPackedLoader
+        self.model.to(device)
+        self.loader = loader or cls(self.train_recs, cfg.batch_size,
+                                    cfg.edge_shards, task=0, shuffle=True,
+                                    seed=cfg.seed, n_data=n_data, device=device)
+        self.opt, self.sched = optim.build_optimizer(
+            cfg.optim, len(self.loader), self.model.parameters())
+        self.grid = spmd.RankGrid(n_data, cfg.edge_shards, device)
+        self.step, _ = sharded.make_sharded_step_fns(
+            self.model, self.grid, self.opt, self.sched, "regression",
+            self.mean, self.std, self.axes)
+
+    def eager(self, stacked) -> tuple:
+        """One eager sharded step and its schedule step: (num, den)."""
+        out = self.step.body(stacked)
+        self.sched.step()
+        return out
+
+    def loss_of(self, stacked):
+        """The sharded forward's loss, for _eager_step_ms."""
+        from hgnn2_torch.parallel import spmd
+        from hgnn2_torch.training import sharded
+
+        batch = spmd.flatten_shards(stacked, self.lead)
+        num, den = sharded._local_metric_sums(
+            self.model(batch), batch, batch.n_graphs // stacked.gmask.shape[
+                self.lead], "regression", self.mean, self.std, self.axes)
+        return num[0] / den.clamp_min(1.0)
+
+    def first_steps(self) -> tuple:
+        """CPU_STEPS eager steps over the first batches in deal order:
+        each step's loss, the step-0 gradients and the BN stats after it."""
+        losses, grads, stats = [], None, None
+        for stacked in self.loader.batches()[:CPU_STEPS]:
+            num, den = self.eager(stacked)
+            losses.append(float(num[0] / den.clamp_min(1.0)))
+            if grads is None:
+                grads = {n: p.grad.detach().cpu().clone()
+                         for n, p in self.model.named_parameters()}
+                stats = {n: b.detach().cpu().clone()
+                         for n, b in self.model.named_buffers()}
+        return losses, grads, stats
+
+
+def _grads_of(model, loss) -> tuple:
+    """(loss, gradients, BN stats) after loss.backward() from zeroed
+    gradients."""
+    loss.backward()
+    return ([float(loss.detach())],
+            {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()},
+            {n: b.detach().cpu().clone() for n, b in model.named_buffers()})
+
+
+def _against_unsharded(name: str, cfg, params, records, dev) -> None:
+    """The first sharded minibatch's step against the unsharded model's
+    on one batch of the same molecules, from the same weights on the
+    card: the loss, the gradients and the BN stats the step leaves."""
+    from hgnn2_torch import convert, graphs
+    from hgnn2_torch.cli import common
+    from hgnn2_torch.nn import ccn
+    from hgnn2_torch.training import train
+
+    sh = _Sharded(cfg, params, dev, records)
+    chunk = sh.train_recs[:cfg.batch_size]  # the loader's first minibatch
+    F_in = records[0].x.shape[1]
+    if sh.is_ccn:
+        model = common.build_model(cfg, "regression", F_in)
+        model.load_state_dict(convert.ccn_params_from_flax(params))
+        batch = ccn.make_ccn_batch(chunk, k_max=sh.loader.k_max, task=0,
+                                   device=dev)
+    else:
+        model = common.build_packed_model(cfg, "regression", F_in)
+        model.load_state_dict(convert.packed_variables_from_flax(params))
+        batch = graphs.make_packed_batch(chunk, task=0, device=dev)
+    model.to(dev).train()
+    sh.model.train()
+    want = _grads_of(model, train._loss_and_metrics(
+        model(batch), batch.y, batch.gmask, "regression", sh.mean, sh.std)[0])
+    got = _grads_of(sh.model, sh.loss_of(sh.loader.batches()[0]))
+    _hold_steps(name, got, want, 0.0 if sh.is_ccn else GRAD_FLOOR,
+                "sharded", "unsharded on the same molecules")
+
+
+def phase_sharded(dev, card: str) -> dict[str, int]:
+    """Molecule-aligned sharded training (--edge_shards, --dp M
+    --edge_shards N) on the card at full width, every rank on it: each
+    of PHASE11_RUNS through cli.common.run_experiment from seeded
+    flax-layout weights (the main path of this phase; the CCN runs with
+    --ccn_kernel, whose K1-K4 launch counts are held to the layers x the
+    Python-level forwards), then, apart from it: the first steps against
+    the CPU's sharded run, the first step against the unsharded model's
+    on the same molecules, two epochs of make_sharded_scan_epoch (one
+    replayed graph a step) against eager sharded steps in the same order
+    under phase 10's rules, for CCN the kernels' steps against the plain
+    path's on the card; host and device ms a step, the busy share and
+    molecules/s, eager and replayed; the flattened capacities against
+    the unsharded batch's. Returns each kernel's launches in the
+    run_experiment runs."""
+    from hgnn2_torch.cli import common
+    from hgnn2_torch.data import batching
+    from hgnn2_torch.nn import ccn, packed
+    from hgnn2_torch.training import sharded
+
+    counters = _counters()
+    launches = dict.fromkeys(counters, 0)
+    t_phase = time.perf_counter()
+    for name, arch, model_kw, es, dp, seed in PHASE11_RUNS:
+        is_ccn = arch in CCN_LAYERS
+        records = _synthetic(N_TRAIN_MOLS if is_ccn else N_MAIN_MOLS)
+        F_in = records[0].x.shape[1]
+        cfg = _sharded_cfg(arch, model_kw, es, dp, str(dev),
+                           os.path.join(OUT_DIR, f"sharded{seed}"))
+        params = _sharded_params(cfg, seed, F_in)
+        n_train = int(0.8 * len(records))
+        steps = -(-n_train // cfg.batch_size)
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _Runs(ccn.CCN1D, ccn.CCN2D, packed.PackedGNN,
+                   packed.PackedLGGNN) as runs:
+            model, history = common.run_experiment(cfg, init_params=params)  # the main path
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {k: c.launches for k, c in counters.items()}
+        for k, n in got.items():
+            launches[k] += n
+        want = dict.fromkeys(counters, 0)
+        if is_ccn:
+            fwd, bwd = CCN_PAIRS[arch]
+            L = cfg.model.n_layers
+            want[fwd] = L * (runs.train + runs.eval)
+            want[bwd] = (L - 1) * runs.train
+        losses = [(row["train_loss"], row["valid_loss"], row["test_loss"])
+                  for row in history]
+        print(f"  {name}: run_experiment, {TRAIN_EPOCHS} epochs x {steps} "
+              f"steps of {cfg.batch_size} molecules, {secs:.2f} s host clock "
+              f"on {card} (batch builds included); (train, valid, test) loss "
+              f"per epoch {losses}; launches {got} (expected {want}: "
+              f"{runs.train} train and {runs.eval} eval Python-level "
+              f"forwards); {runs.replays} graph replays (expected "
+              f"{TRAIN_EPOCHS * steps}, one a step)")
+        finite = all(np.isfinite(v) for row in history for v in row.values())
+        if len(history) != TRAIN_EPOCHS or not finite:
+            raise AssertionError(f"{name}: training history not finite: {history}")
+        if got != want or runs.replays != TRAIN_EPOCHS * steps:
+            raise AssertionError(f"{name}: launches {got} != {want} or "
+                                 f"{runs.replays} replays")
+        if is_ccn and not model.kernel:
+            raise AssertionError(f"{name}: --ccn_kernel did not reach the model")
+
+        # the first steps, card against the CPU's sharded run
+        card_run = _Sharded(cfg, params, dev, records)
+        cpu_cfg = dataclasses.replace(cfg, device="cpu", model=dataclasses.replace(
+            cfg.model))
+        _hold_steps(name, card_run.first_steps(),
+                    _Sharded(cpu_cfg, params, "cpu", records).first_steps(),
+                    0.0 if is_ccn else GRAD_FLOOR)
+        if is_ccn:  # the kernels' steps against the plain path's, on the card
+            plain = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, ccn_kernel=False))
+            _hold_steps(name, _Sharded(cfg, params, dev, records,
+                                       card_run.loader).first_steps(),
+                        _Sharded(plain, params, dev, records,
+                                 card_run.loader).first_steps(), 0.0,
+                        "kernels", "plain path")
+        _against_unsharded(name, cfg, params, records, dev)
+
+        # two epochs replayed against eager, the same order, same weights
+        run = _Sharded(cfg, params, dev, records, card_run.loader)
+        twin = _Sharded(cfg, params, dev, records, card_run.loader)
+        loader = run.loader
+        orders = [loader.epoch_order() for _ in range(TRAIN_EPOCHS)]
+        stack_batches, scan = sharded.make_sharded_scan_epoch(
+            run.step, run.grid, run.axes)
+        stacked_all = stack_batches(loader.batches())
+        hist_c, host_c = [], []
+        for order in orders:
+            t0 = time.perf_counter()
+            hist_c.append({k: float(v) for k, v in
+                           scan(stacked_all, order).items()})
+            host_c.append(time.perf_counter() - t0)
+        slack = _Slack(twin.model, twin.sched)
+        step_e = slack.step_fn(twin.eager)
+        hist_e, host_e = [], []
+        for order in orders:
+            t0 = time.perf_counter()
+            sums = [step_e(loader.batches()[i]) for i in order]
+            num = torch.stack([n for n, _ in sums])
+            den = torch.stack([d for _, d in sums])
+            loss = num[:, 0] / den.clamp_min(1.0)
+            mae = num[:, 1] / den.clamp_min(1.0)
+            total = den.sum().clamp_min(1.0)
+            hist_e.append({"loss": float((loss * den).sum() / total),
+                           "mae": float((mae * den).sum() / total)})
+            host_e.append(time.perf_counter() - t0)
+        met_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                      for a, b in zip(hist_c, hist_e) for k in b)
+        tol = ATOMIC_TOL if is_ccn else ATOMIC_TOL_BN
+        ok, apart = _apart(_state(run.model), _state(twin.model), slack, tol)
+        print(f"  {name}: replayed vs eager sharded steps from the same "
+              f"weights and order, {TRAIN_EPOCHS} epochs: losses "
+              f"{[(round(a['loss'], 6), round(b['loss'], 6)) for a, b in zip(hist_c, hist_e)]}, "
+              f"epoch metrics max rel err {met_err:.3e} (tolerance "
+              f"{TRAIN_LOSS_RTOL}); {apart}")
+        if met_err > TRAIN_LOSS_RTOL or not ok:
+            raise AssertionError(f"{name}: replayed and eager sharded steps "
+                                 "disagree")
+
+        # times and capacities
+        n_steps = len(loader)
+        dev_c = _spun_ms(lambda: scan(stacked_all, np.arange(n_steps))) / n_steps
+        first = loader.batches()[0]
+        dev_e = _eager_step_ms(twin.model, twin.opt, twin.sched, first,
+                               twin.mean, twin.std, loss_of=twin.loss_of)
+        hc, he = host_c[-1] / n_steps * 1e3, host_e[-1] / n_steps * 1e3
+        print(f"  {name} on {card}: replayed {hc:.3f} ms/step host (epoch 2), "
+              f"{dev_c:.3f} ms/step device, busy {dev_c / hc * 100:.1f} %, "
+              f"{n_train / host_c[-1]:.1f} molecules/s; eager {he:.3f} ms/step "
+              f"host, {dev_e:.3f} ms/step device, busy "
+              f"{dev_e / he * 100:.1f} %, {n_train / host_e[-1]:.1f} "
+              f"molecules/s; {len(scan.graphs.graphs)} graph, captured in "
+              f"{scan.graphs.capture_s:.3f} s")
+        if max(dev_c / hc, dev_e / he) > BUSY_MAX:
+            raise AssertionError(f"{name}: device ms a step above the host's")
+        n_ranks = es * max(dp, 1)
+        train_recs = run.train_recs
+        if is_ccn:
+            ub = next(iter(batching.CCNLoader(train_recs, cfg.batch_size,
+                                              task=0, device="cpu")))
+            caps = (f"flattened {n_ranks} x {loader.vertex_capacity} = "
+                    f"{n_ranks * loader.vertex_capacity} vertices (K = "
+                    f"{loader.k_max}) against the unsharded CCNLoader batch's "
+                    f"{ub.x.shape[0]} (K = {ub.nbr.shape[1]})")
+        else:
+            ub = next(iter(batching.PackedLoader(train_recs, cfg.batch_size,
+                                                 task=0, device="cpu")))
+            caps = (f"flattened {n_ranks} x {loader.node_capacity} = "
+                    f"{n_ranks * loader.node_capacity} nodes and {n_ranks} x "
+                    f"{loader.edge_capacity} = {n_ranks * loader.edge_capacity}"
+                    f" edges against the unsharded PackedLoader batch's "
+                    f"{ub.num_node_slots} nodes and {ub.num_edge_slots} edges")
+        print(f"  {name}: {caps}; {n_ranks} x {loader.graphs_per_shard} graph "
+              f"slots for {cfg.batch_size} molecules")
+        del model, card_run, run, twin, stacked_all, scan
+        torch.cuda.empty_cache()
+    print(f"  phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -2321,10 +2662,15 @@ def main() -> None:
     print("phase 10: the compiled step and the scanned epoch as CUDA graphs, "
           "captured against eager")
     captured = phase_captured(dev, card)
+
+    print("phase 11: molecule-aligned sharded training (--edge_shards, --dp "
+          "M --edge_shards N)")
+    sharded_runs = phase_sharded(dev, card)
     for key, row in rows.items():  # launches of the main paths' runs
         row["launches"] = (served[key] + trained[key] + packed[key]
                            + main_path[key] + lggnn[key] + packed_train[key]
-                           + served_files[key] + captured[key])
+                           + served_files[key] + captured[key]
+                           + sharded_runs[key])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "ms_in_run", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps(floor))

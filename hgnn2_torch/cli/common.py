@@ -8,18 +8,21 @@ PackedLoader batches), and the CCN models, on QM9 (an npz cache or a
 directory of .xyz files, --data_path), the synthetic QM9-shaped molecules
 or the collinear-points classification set; --ckpt saves a checkpoint
 every epoch, --resume goes on from the latest, --bn_recalib re-estimates
-the BN statistics after training. The flags of the parallel slice (--dp,
---edge_shards) and the CCN drivers' --chunks parse as in JAX and take
-their default, 1; any other value raises NotImplementedError in
-run_experiment or build_model, naming the slice it comes with (F for the
-first two, C3 for --chunks). The export and predict entry points load
-their data, target stats and packed checkpoints through the helpers
-here.
+the BN statistics after training. --edge_shards N trains molecule-aligned
+shards (training/sharded.py): the packed twin of gnn/lggnn, or the CCN
+model, over N ranks, and --dp M --edge_shards N over an (M, N) grid of
+them, every rank on the run's device. --dp other than 1 without edge
+shards (data parallelism over dense batches) and the CCN drivers'
+--chunks other than 1 parse as in JAX and raise NotImplementedError
+naming the slice they come with (F3, C3). The export and predict entry
+points load their data, target stats and packed checkpoints through the
+helpers here.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
 import time
@@ -113,11 +116,10 @@ def restore_packed_checkpoint(ckpt_path: str, model) -> int | None:
     """Loads the latest checkpoint of a --packed run into ``model`` (a
     PackedGNN or PackedLGGNN of the run's configuration) for export or
     prediction. Returns the epoch it was saved after, or None when
-    ckpt_path holds none. The port's packed checkpoints all come from the
-    single-device fit (Checkpointer.save: the model's state_dict with its
-    BN buffers, then the optimizer's and the schedule's), so this one
-    layout is read; the edge-sharded trainer's comes with the parallel
-    slice."""
+    ckpt_path holds none. The single-device fit and the edge-sharded
+    trainer (training/sharded.py) write one layout (Checkpointer.save: the
+    model's state_dict with its BN buffers, then the optimizer's and the
+    schedule's), which this reads."""
     if not isinstance(model, (packed_mod.PackedGNN, packed_mod.PackedLGGNN)):
         raise TypeError(f"not a packed model: {type(model).__name__}")
     return ckpt_lib.Checkpointer(ckpt_path).restore(model)
@@ -153,18 +155,23 @@ def build_model(cfg: TrainConfig, kind: str, n_features: int):
     raise NotImplementedError(f"arch {m.arch!r} comes with a later slice")
 
 
-def build_packed_model(cfg: TrainConfig, kind: str, n_features: int):
+def build_packed_model(cfg: TrainConfig, kind: str, n_features: int,
+                       bn_axis: str | tuple[str, ...] | None = None):
     """The packed segment-sum twin of cfg.model (gnn or lggnn) for inputs
     of n_features channels, its weights drawn from cfg.seed. Run it over
     a PackedGraphBatch, on one device (run_experiment with --packed
     trains it) or with an edge-partitioned operator bundle
-    (parallel.spmd.partitioned_packed_ops)."""
+    (parallel.spmd.partitioned_packed_ops). bn_axis ("edge", or ("data",
+    "edge") under --dp) pools its BN statistics over the ranks of
+    molecule-aligned shards (the --edge_shards trainer); None for one
+    device, over the same parameters."""
     m = cfg.model
     dim_output = 2 if kind == "classification" else m.dim_output
     compat = CompatConfig.reference() if m.compat_reference else CompatConfig()
     kw = dict(n_features=m.n_features, n_layers=m.n_layers,
               in_features=n_features, dim_output=dim_output, J=m.J,
-              compat=compat, generator=torch.Generator().manual_seed(cfg.seed))
+              compat=compat, bn_axis=bn_axis,
+              generator=torch.Generator().manual_seed(cfg.seed))
     if m.arch == "lggnn":
         return packed_mod.PackedLGGNN(order=m.order, **kw)
     if m.arch == "gnn":
@@ -172,24 +179,36 @@ def build_packed_model(cfg: TrainConfig, kind: str, n_features: int):
     raise ValueError(f"no packed variant for arch {m.arch!r}")
 
 
+def _device_count(dev: torch.device) -> int:
+    """The devices of dev's type that "0 = all" flags count: the cards
+    for cuda, 1 for the CPU."""
+    return torch.cuda.device_count() if dev.type == "cuda" else 1
+
+
 def run_experiment(cfg: TrainConfig, init_params=None):
     """Train cfg's model on cfg.device. init_params: optional weights in
     the JAX models' flax layout (hgnn2_torch.convert; for gnn and lggnn,
     dense or packed, the whole variables dict, batch_stats included) to
-    start from in place of the seeded draw. Returns (model, history)."""
+    start from in place of the seeded draw. With cfg.edge_shards > 1 the
+    run goes through training.sharded.fit_sharded, as in the JAX package
+    (there, the CCN kernels are on only when cfg.model.ccn_kernel says
+    so). Returns (model, history)."""
     runtime.setup()
+    dev = resolve_device(cfg.device)
+    n_es = cfg.edge_shards or _device_count(dev)  # 0 = every device
     use_packed = cfg.model.packed and cfg.model.arch in ("gnn", "lggnn")
-    if use_packed and cfg.dp > 1:
-        raise ValueError(
-            "--packed batches have flat node/edge leading axes that --dp "
-            "cannot shard batch-wise; scale packed models with "
-            "--edge_shards (molecule-aligned sharding)")
-    if cfg.dp != 1 or cfg.edge_shards != 1:
-        raise NotImplementedError("--dp/--edge_shards other than 1 come "
-                                  "with the parallel slice (F)")
+    if n_es <= 1 and (cfg.dp or _device_count(dev)) > 1:
+        if use_packed:
+            raise ValueError(
+                "--packed batches have flat node/edge leading axes that "
+                "--dp cannot shard batch-wise; scale packed models with "
+                "--edge_shards (molecule-aligned sharding)")
+        raise NotImplementedError(
+            "--dp other than 1 without --edge_shards (data parallelism over "
+            "dense batches) comes with the parallel slice (F), step F3; "
+            "--dp M --edge_shards N trains molecule-aligned shards")
     logging.basicConfig(level=logging.INFO, force=True)
     logging.getLogger("hgnn2_torch").setLevel(logging.INFO)
-    dev = resolve_device(cfg.device)
     records, kind, tstats, _source = load_records(cfg)
     train_recs, valid_recs, test_recs = synthetic.split_80_10_10(
         records, shuffle=cfg.data.shuffle_split, seed=cfg.seed)
@@ -217,6 +236,33 @@ def run_experiment(cfg: TrainConfig, init_params=None):
             tstats.save(os.path.join(cfg.checkpoint_path, TARGET_STATS_FILE))
 
     is_ccn = cfg.model.arch in ("ccn1d", "ccn2d")
+    n_features = records[0].x.shape[1]
+    splits = {"train": train_recs, "valid": valid_recs, "test": test_recs}
+    if n_es > 1:
+        # molecule-aligned shards over an (n_dp, n_es) grid of ranks; as in
+        # the JAX package this branch comes before the CCN kernels' auto
+        # rule, so a sharded CCN run takes them only when asked to
+        from hgnn2_torch.training import sharded
+
+        # --dp 0: the devices left over by the edge axis
+        n_dp = max(cfg.dp or _device_count(dev) // n_es, 1)
+        if is_ccn:
+            model = build_model(cfg, kind, n_features)
+        else:
+            model = build_packed_model(
+                cfg, kind, n_features,
+                bn_axis=("data", "edge") if n_dp > 1 else "edge")
+        model, history = sharded.fit_sharded(
+            model, dataclasses.replace(cfg, edge_shards=n_es, dp=n_dp),
+            splits, kind=kind, mean=mean, std=std, accuracy=accuracy,
+            logger=logger, family="ccn" if is_ccn else "packed",
+            init_params=init_params)
+        if history:
+            logger.log_final(**history[-1])
+            log.info("final: %s",
+                     {k: round(v, 4) for k, v in history[-1].items()})
+        return model, history
+
     if is_ccn and cfg.model.ccn_kernel is None:
         k_max = max((r.max_degree() + 1 for r in train_recs), default=99)
         cfg.model.ccn_kernel = ccn_fused.use_kernel(k_max, dev)
@@ -224,7 +270,6 @@ def run_experiment(cfg: TrainConfig, init_params=None):
             log.info("%s: fused CUDA kernels enabled (K=%d); "
                      "--no_ccn_kernel for the plain path", cfg.model.arch,
                      k_max)
-    n_features = records[0].x.shape[1]
     model = (build_packed_model(cfg, kind, n_features) if use_packed
              else build_model(cfg, kind, n_features))
     if init_params is not None:
@@ -233,8 +278,6 @@ def run_experiment(cfg: TrainConfig, init_params=None):
             else convert.packed_variables_from_flax(init_params) if use_packed
             else convert.dense_variables_from_flax(init_params))
     model.to(dev)
-
-    splits = {"train": train_recs, "valid": valid_recs, "test": test_recs}
 
     def make_loader(split):
         recs = splits[split]
@@ -303,11 +346,14 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--shuffle", action="store_true")
     p.add_argument("--compat_reference", action="store_true")
     p.add_argument("--dp", type=int, default=1,
-                   help="data-parallel devices; only 1 (the parallel "
-                        "slice F brings more)")
+                   help="data-parallel groups (0 = the devices of "
+                        "--device's type); with --edge_shards N an (M, N) "
+                        "grid of ranks, without it slice F3's dense data "
+                        "parallelism, not ported")
     p.add_argument("--edge_shards", type=int, default=1,
-                   help="molecule-aligned edge shards; only 1 (the "
-                        "parallel slice F brings more)")
+                   help="molecule-aligned shards (0 = the devices of "
+                        "--device's type): packed gnn/lggnn or CCN over N "
+                        "ranks, every rank on --device")
     p.add_argument("--no_cache", action="store_true",
                    help="re-build every batch each epoch instead of "
                         "replaying cached batches (order-only shuffle)")

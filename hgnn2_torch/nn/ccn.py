@@ -67,6 +67,8 @@ def make_ccn_batch(
     add_self_loops: bool = True,
     task: int | None = None,
     batch_size: int | None = None,
+    feature_dim: int | None = None,
+    y_dtype=None,
     device: str | torch.device | None = None,
 ) -> CCNBatch:
     """Builds the batched chi/neighbor tables on the host, each graph's
@@ -76,11 +78,10 @@ def make_ccn_batch(
 
     add_self_loops uses A + I, which guarantees chi_ii exists. batch_size
     pads the graph axis with empty graphs (gmask 0) so a serving bucket
-    keeps one shape.
+    keeps one shape. An empty record list builds an all-padding batch;
+    k_max and feature_dim must then be given (y_dtype, default float32).
     """
     dev = resolve_device(device)
-    if not records:
-        raise ValueError("make_ccn_batch needs at least one record")
     bs = len(records)
     B = batch_size or bs
     nbr_lists: list[list[np.ndarray]] = []
@@ -95,12 +96,20 @@ def make_ccn_batch(
     V = vertex_capacity or tot_v
     if tot_v > V:
         raise ValueError(f"vertex capacity too small: {tot_v} > {V}")
-    max_deg = max(len(l) for ls in nbr_lists for l in ls)
+    max_deg = max((len(l) for ls in nbr_lists for l in ls), default=0)
     K = k_max or max_deg
+    if not K:
+        raise ValueError("k_max is required for an empty record list")
     if max_deg > K:
         raise ValueError(f"max receptive-field size {max_deg} exceeds k_max={K}")
+    if records:
+        F = records[0].x.shape[1]
+    elif feature_dim is not None:
+        F = feature_dim
+    else:
+        raise ValueError("feature_dim is required for an empty record list")
 
-    x = np.zeros((V, records[0].x.shape[1]), dtype=np.float32)
+    x = np.zeros((V, F), dtype=np.float32)
     nbr = np.zeros((V, K), dtype=np.int32)
     chi_idx = np.full((V, K, K), -1, dtype=np.int32)
     rslot = np.full((V, K), -1, dtype=np.int32)
@@ -148,11 +157,14 @@ def make_ccn_batch(
             nbr[off : off + n] = np.where(L >= 0, L + off, 0).astype(np.int32)
         off += n
         ys.append(r.y if task is None else r.y[task])
-    y = np.stack([np.asarray(t) for t in ys], axis=0)
-    if not np.issubdtype(y.dtype, np.integer):
-        y = y.astype(np.float32)
-    if B > bs:
-        y = np.concatenate([y, np.zeros((B - bs,) + y.shape[1:], y.dtype)])
+    if ys:
+        y = np.stack([np.asarray(t) for t in ys], axis=0)
+        if not np.issubdtype(y.dtype, np.integer):
+            y = y.astype(np.float32)
+        if B > bs:
+            y = np.concatenate([y, np.zeros((B - bs,) + y.shape[1:], y.dtype)])
+    else:
+        y = np.zeros((B,), y_dtype or np.float32)
     gmask = np.zeros((B,), np.float32)
     gmask[:bs] = 1.0
     arrays = dict(x=x, nbr=nbr, chi_idx=chi_idx, rslot=rslot, deg=deg,

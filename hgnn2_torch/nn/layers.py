@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from hgnn2_torch.parallel import spmd
+
 
 def ref_init(tensor: torch.Tensor, scale: float = 0.1,
              generator: torch.Generator | None = None) -> torch.Tensor:
@@ -84,24 +86,33 @@ class MaskedBatchNorm(nn.Module):
     ``scale`` and ``bias`` (0-d under scalar_affine_bn) and buffers
     ``mean`` and ``std`` carry the flax names. Computes in float32 and
     returns the input's dtype.
+
+    axis_name (a mesh axis, "edge", or a tuple of them, ("data", "edge"))
+    pools the statistics over every rank of those axes, as the JAX
+    module does inside a shard_map: count and total are summed over the
+    ranks (parallel.spmd.psum) before the mean, then the squared
+    deviations about that pooled mean. The input is then the ranks'
+    molecule-aligned shards laid end to end (spmd.flatten_shards).
     """
 
     def __init__(self, num_features: int, momentum: float = 0.1,
                  eps: float = 1e-5, compat: CompatConfig = CompatConfig(),
-                 axis_name: str | None = None,
+                 axis_name: str | tuple[str, ...] | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         if axis_name is not None:
-            raise NotImplementedError(
-                "molecule-aligned BN (axis_name) comes with the sharded "
-                "training slice")
+            spmd.mesh_axes(axis_name)
         self.momentum, self.eps, self.compat = momentum, eps, compat
+        self.axis_name = axis_name
         pshape = () if compat.scalar_affine_bn else (num_features,)
         self.scale = nn.Parameter(ref_init(torch.empty(pshape), generator=generator))
         self.bias = nn.Parameter(ref_init(torch.empty(pshape), generator=generator))
         self.register_buffer("mean", torch.zeros(num_features))
         std0 = torch.zeros if compat.bn_running_std_init_zero else torch.ones
         self.register_buffer("std", std0(num_features))
+
+    def _psum(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.axis_name is None else spmd.psum(x, self.axis_name)
 
     def forward(self, h: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         in_dtype = h.dtype
@@ -110,9 +121,9 @@ class MaskedBatchNorm(nn.Module):
         hm = h * m
         if self.training:
             axes = tuple(range(h.dim() - 1))
-            count = m.sum().clamp_min(1.0)
-            mean = hm.sum(dim=axes) / count
-            sq = (((hm - mean) * m) ** 2).sum(dim=axes)
+            count = self._psum(m.sum()).clamp_min(1.0)
+            mean = self._psum(hm.sum(dim=axes)) / count
+            sq = self._psum((((hm - mean) * m) ** 2).sum(dim=axes))
             std = torch.sqrt(self.eps + sq / count)
             with torch.no_grad():
                 self.mean.copy_((1.0 - self.momentum) * mean

@@ -8,7 +8,10 @@ split over the ranks of a mesh. Module names follow the flax models'
 (``layer{i}_node_cv1``, ``layer{i}_edge_bn``, ``fc``...), so
 hgnn2_torch.convert maps weights one to one. Train mode is
 ``module.train()``: BatchNorm then uses batch statistics and updates its
-running ones.
+running ones. bn_axis ("edge", or ("data", "edge")) pools those
+statistics over the ranks of molecule-aligned shards laid end to end
+(parallel.spmd.flatten_shards; the --edge_shards trainer,
+training/sharded.py).
 """
 
 from __future__ import annotations
@@ -96,7 +99,7 @@ class PackedLGGNN(_PackedBase):
     def __init__(self, n_features: int, n_layers: int, in_features: int,
                  dim_output: int = 1, J: int = 1, order: int = 1,
                  compat: CompatConfig = CompatConfig(),
-                 bn_axis: str | None = None,
+                 bn_axis: str | tuple[str, ...] | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         if order not in (1, 2, 3):
@@ -161,7 +164,7 @@ class PackedGNN(_PackedBase):
     def __init__(self, n_features: int, n_layers: int, in_features: int,
                  dim_output: int = 1, J: int = 1,
                  compat: CompatConfig = CompatConfig(),
-                 bn_axis: str | None = None,
+                 bn_axis: str | tuple[str, ...] | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.in_features, self.n_features = in_features, n_features

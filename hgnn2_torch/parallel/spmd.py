@@ -1,28 +1,45 @@
-"""Edge-partitioned execution of the packed models (counterpart of the
-edge-axis half of hgnn2_tpu/parallel/spmd.py).
+"""Partitioned execution of the packed models (counterpart of
+hgnn2_tpu/parallel/spmd.py): the edge-partitioned half and the
+molecule-aligned half.
 
-The packed edge set is split over the S ranks of an EdgeMesh: rank r takes
-the contiguous edge slots [r*C/S, (r+1)*C/S), as P("edge") cuts the
-leading axis in JAX. Node and edge states stay replicated. Every operator
-application whose output lives on nodes is one rank-local segment sum and
-one all-reduce of the (V, F) node block; per-edge arithmetic (the NB
-operator's reverse-edge term, the Pm^T/Pd^T gathers) needs none.
+Edge-partitioned: the packed edge set is split over the S ranks of an
+EdgeMesh: rank r takes the contiguous edge slots [r*C/S, (r+1)*C/S), as
+P("edge") cuts the leading axis in JAX. Node and edge states stay
+replicated. Every operator application whose output lives on nodes is one
+rank-local segment sum and one all-reduce of the (V, F) node block;
+per-edge arithmetic (the NB operator's reverse-edge term, the Pm^T/Pd^T
+gathers) needs none.
+
+Molecule-aligned: molecules are dealt whole into edge-balanced shards
+(partition_records) and each shard is packed on its own
+(make_packed_shards: a PackedGraphBatch whose fields carry a leading
+rank axis, or two for the hybrid (data, edge) layout). No molecule spans
+two shards, so every operator apply stays inside a shard; only the
+BatchNorm statistics and the loss's sums cross ranks, each through psum.
 
 The JAX package drives every device of a shard_map from one process, and
-so does the port: an EdgeMesh is a list of rank devices in one process.
-So far all ranks must sit on one device (every rank ``cuda:0`` on a card,
-``cpu`` on the host), where the all-reduce is kernel K5 over the ranks'
-buffers (ops/ring.py) or a plain sum. Ranks on several cards come with the
-multi-device slice.
+so does the port: an EdgeMesh is a list of rank devices in one process
+and a RankGrid a (data, edge) grid of ranks. So far all ranks sit on one
+device (every rank ``cuda:0`` on a card, ``cpu`` on the host). There the
+edge-partitioned all-reduce is kernel K5 over the ranks' buffers
+(ops/ring.py) or a plain sum, and the ranks of a molecule-aligned batch
+run as one batch: flatten_shards lays them end to end, rank-major, with
+each rank's indices moved past the ranks before it, so the model runs
+once over all of them and every cross-rank sum is already whole. Ranks on
+several devices or processes come with later steps of the parallel
+slice.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from hgnn2_torch import resolve_device
 from hgnn2_torch.graphs import PackedGraphBatch
 from hgnn2_torch.ops import sparse
 from hgnn2_torch.ops.ring import ring_psum
@@ -120,7 +137,8 @@ class PartitionedPackedOps:
         # the degree once per bundle; the NB degree derives from it with
         # no extra all-reduce: dl[e] = deg[dst(e)] - w(rev(e))
         self.deg = self._seg(pb.src, pb.w[:, None])[:, 0]
-        self.dl = (self.deg[pb.dst] - pb.w[pb.rev]) * pb.edge_mask
+        self.dl = ((sparse.gather(self.deg, pb.dst)
+                    - sparse.gather(pb.w, pb.rev)) * pb.edge_mask)
 
     def _seg(self, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
         """Rank-local segment sums of each rank's edge block, then one
@@ -135,7 +153,7 @@ class PartitionedPackedOps:
 
     def _spmm(self, x):
         pb = self.pb
-        return self._seg(pb.src, pb.w[:, None] * x[pb.dst])
+        return self._seg(pb.src, pb.w[:, None] * sparse.gather(x, pb.dst))
 
     def graph_op(self, x):
         return sparse.power_blocks(x, self.deg, self._spmm, self.J)
@@ -143,7 +161,8 @@ class PartitionedPackedOps:
     def _nb(self, xl):
         pb = self.pb
         y = self._seg(pb.src, pb.w[:, None] * xl)
-        out = y[pb.dst] - pb.w[pb.rev][:, None] * xl[pb.rev]
+        w_rev = sparse.gather(pb.w, pb.rev)[:, None]
+        out = sparse.gather(y, pb.dst) - w_rev * sparse.gather(xl, pb.rev)
         return out * pb.edge_mask[:, None]
 
     def lg_graph_op(self, xl):
@@ -211,3 +230,238 @@ def pad_edges_for_partition(arrays: dict, n_shards: int, num_nodes: int) -> dict
             fill = np.zeros((pad,) + v.shape[1:], v.dtype)
         out[k] = np.concatenate([v, fill], axis=0)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Molecule-aligned sharding (no exchange per operator apply)
+# ---------------------------------------------------------------------------
+
+AXES = ("data", "edge")
+
+
+class RankGrid:
+    """M x N ranks along the axes ("data", "edge") (counterpart of
+    Mesh(devices.reshape(M, N), ("data", "edge"))). Every rank sits on
+    ``device``, as an EdgeMesh's do so far."""
+
+    axis_names = AXES
+
+    def __init__(self, n_data: int = 1, n_edge: int = 1,
+                 device: str | torch.device | None = None):
+        if n_data < 1 or n_edge < 1:
+            raise ValueError(f"a rank grid needs at least one rank an axis; "
+                             f"got ({n_data}, {n_edge})")
+        self.shape = {"data": n_data, "edge": n_edge}
+        self.device = _indexed(resolve_device(device))
+
+    @property
+    def size(self) -> int:
+        return self.shape["data"] * self.shape["edge"]
+
+    def check(self, stacked, axes) -> None:
+        """Raises unless the stacked batch's leading rank dims are this
+        grid's sizes along ``axes`` and it lies on the grid's device, as
+        a shard_map over those axes requires."""
+        want = tuple(self.shape[a] for a in mesh_axes(axes))
+        got = tuple(stacked.gmask.shape[:len(want)])
+        if got != want:
+            raise ValueError(f"stacked ranks {got}, the grid's {axes} are "
+                             f"{want}")
+        if stacked.gmask.device != self.device:
+            raise ValueError(f"batch on {stacked.gmask.device}, ranks on "
+                             f"{self.device}")
+
+
+def mesh_axes(axis_name) -> tuple[str, ...]:
+    """axis_name (a mesh axis or a tuple of them) as a tuple; raises for
+    a name that is not one of AXES."""
+    names = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+    if not names or any(n not in AXES for n in names):
+        raise ValueError(f"mesh axes {names!r}: each must be one of {AXES}")
+    return names
+
+
+def psum(x: torch.Tensor, axis_name, ranked: int = 0) -> torch.Tensor:
+    """The sum of x over the ranks of the mesh axes ``axis_name`` (a name
+    or a tuple of names; JAX's lax.psum). Every cross-rank reduction of
+    the molecule-aligned path passes through here: BatchNorm's count,
+    total and squared deviations, the loss's and the metrics' sums.
+
+    While every rank lives in this process, x either carries the ranks on
+    its ``ranked`` leading dims, which are summed, or (ranked=0) already
+    holds the sum over every rank, the ranks having been flattened into
+    one batch (flatten_shards), and is returned as it is. Ranks in other
+    processes would make this an all-reduce over their process group."""
+    mesh_axes(axis_name)
+    if ranked:
+        return x.sum(dim=tuple(range(ranked)))
+    return x
+
+
+def partition_records(records, n_shards: int) -> list[list]:
+    """Greedy bin-packing of molecules into n_shards shards balanced by
+    directed-edge count, largest first, each to the least loaded shard
+    (the first of equals). A molecule is never split, so the cut is
+    empty. The shards and their order equal the JAX package's."""
+    order = sorted(range(len(records)), key=lambda i: -records[i].n_dir_edges)
+    shards: list[list] = [[] for _ in range(n_shards)]
+    loads = [0] * n_shards
+    for i in order:
+        k = loads.index(min(loads))
+        shards[k].append(records[i])
+        loads[k] += records[i].n_dir_edges
+    return shards
+
+
+def _tensor_fields(batch) -> list[str]:
+    return [f.name for f in dataclasses.fields(batch)
+            if isinstance(getattr(batch, f.name), torch.Tensor)]
+
+
+def stack_shards(batches: Sequence, device=None):
+    """Batches of one shape (PackedGraphBatch or CCNBatch) stacked on a
+    new leading rank axis, on ``device`` (default: where they are); the
+    other fields (n_graphs) from the first."""
+    return dataclasses.replace(batches[0], **{
+        name: torch.stack([getattr(b, name) for b in batches]).to(device)
+        for name in _tensor_fields(batches[0])})
+
+
+def padding_dims(records, task):
+    """(feature_dim, y_dtype) of the records, for empty shards' padding."""
+    if not records:
+        return None, None
+    y0 = np.asarray(records[0].y if task is None else records[0].y[task])
+    y_dtype = y0.dtype if np.issubdtype(y0.dtype, np.integer) else np.float32
+    return records[0].x.shape[1], y_dtype
+
+
+def make_packed_shards(records, n_shards: int, node_capacity: int,
+                       edge_capacity: int, graphs_per_shard: int,
+                       task: int | None = None, parts=None,
+                       device: str | torch.device | None = None
+                       ) -> PackedGraphBatch:
+    """The molecules partitioned into n_shards edge-balanced shards
+    (partition_records, or ``parts`` when the caller has partitioned
+    already), each packed at the given capacities and graphs_per_shard
+    graph slots, stacked on a leading rank axis: a PackedGraphBatch of
+    (S, ...) fields, n_graphs = graphs_per_shard, each shard's indices
+    local to it. A shard with no molecule is all padding. Built on the
+    host and moved to ``device`` (default cuda) once; every array equals
+    the JAX package's."""
+    from hgnn2_torch import graphs as graphs_lib
+
+    dev = resolve_device(device)
+    if parts is None:
+        parts = partition_records(records, n_shards)
+    feature_dim, y_dtype = padding_dims(records, task)
+    batches = []
+    for part in parts:
+        if len(part) > graphs_per_shard:
+            raise ValueError(f"shard holds {len(part)} graphs > "
+                             f"graphs_per_shard={graphs_per_shard}")
+        batches.append(graphs_lib.make_packed_batch(
+            part, node_capacity=node_capacity, edge_capacity=edge_capacity,
+            task=task, batch_size=graphs_per_shard, feature_dim=feature_dim,
+            y_dtype=y_dtype, device="cpu"))
+    return stack_shards(batches, dev)
+
+
+_NODE_INDEX = ("src", "dst", "nbr")  # global vertex indices of a shard
+_EDGE_INDEX = ("rev",)  # edge slot indices
+_GRAPH_ID = ("node_gid", "edge_gid", "gid")  # graph ids, padding = n_graphs
+
+
+def flatten_shards(stacked, lead: int = 1):
+    """One batch of every rank of a stacked batch of molecule-aligned
+    shards (make_packed_shards, ccn_parallel.make_ccn_shards): ``lead``
+    leading rank dims (1 for (S, ...), 2 for the hybrid (M, N, ...))
+    become R ranks laid end to end, rank-major (rank r = d N + e). Rank r's
+    vertex indices (src, dst, CCN nbr) move by r Vl, its edge indices
+    (rev) by r El and its real graph ids by r Gl; graph-id padding (Gl in
+    a shard) maps to the one drop slot R Gl, which n_graphs = R Gl makes
+    the readouts drop, not onto the next rank's first graph. The CCN
+    tables chi_idx and rslot hold slots, not vertices, and their -1
+    sentinels stay. Padded edges keep pointing at their own rank's last
+    node and at themselves. Runs on the device (a few elementwise ops, no
+    host sync)."""
+    x = stacked.x
+    R = int(np.prod(x.shape[:lead]))
+    Vl, Gl = x.shape[lead], stacked.gmask.shape[lead]
+    rank = torch.arange(R, device=x.device, dtype=torch.int32)
+
+    def ranked(t):  # (R, n, ...)
+        return t.reshape((R,) + t.shape[lead:])
+
+    def offset(t, step):
+        t = ranked(t)
+        return t + (rank * step).reshape((R,) + (1,) * (t.dim() - 1))
+
+    out = {}
+    for name in _tensor_fields(stacked):
+        t = getattr(stacked, name)
+        if name in _NODE_INDEX:
+            t = offset(t, Vl)
+        elif name in _EDGE_INDEX:
+            t = offset(t, t.shape[lead])
+        elif name in _GRAPH_ID:
+            t = offset(t, Gl).masked_fill_(ranked(t) >= Gl, R * Gl)
+        else:
+            t = ranked(t)
+        out[name] = t.reshape((-1,) + t.shape[2:])
+    return dataclasses.replace(stacked, n_graphs=R * Gl, **out)
+
+
+def local_partitioned_spmm(mesh: RankGrid, nodes_per_shard: int):
+    """Molecule-aligned SpMM: f(src, dst, w, x) -> (S, Vl, F) for
+    stacked (S, El) shard-local edges and (S, Vl, F) node features; each
+    shard aggregates its own edges, with no exchange (the cut is empty).
+    The shards run as one segment sum over their flattened blocks."""
+
+    def apply(src, dst, w, x):
+        S, Vl = x.shape[:2]
+        if Vl != nodes_per_shard:
+            raise ValueError(f"{Vl} nodes a shard, expected {nodes_per_shard}")
+        off = (torch.arange(S, device=src.device, dtype=src.dtype)
+               * nodes_per_shard)[:, None]
+        out = sparse.spmm((src + off).reshape(-1), (dst + off).reshape(-1),
+                          w.reshape(-1), x.reshape((S * Vl,) + x.shape[2:]),
+                          S * Vl)
+        return out.reshape(x.shape)
+
+    return apply
+
+
+def per_graph_loss(out: torch.Tensor, y: torch.Tensor, kind: str,
+                   mean: float, std: float) -> torch.Tensor:
+    """Each graph's loss: cross-entropy of its logits, or the squared
+    error against its mean/std-normalized target."""
+    if kind == "classification":
+        return F.cross_entropy(out, y.long(), reduction="none")
+    return (out[:, 0] - (y - mean) / (std + 1e-8)) ** 2
+
+
+def sharded_packed_loss(model, mesh: RankGrid | None = None,
+                        kind: str = "regression", mean: float = 0.0,
+                        std: float = 1.0):
+    """loss_fn(stacked) -> the masked loss of a packed model (built with
+    bn_axis="edge") over (S, ...) stacked molecule-aligned shards: each
+    rank's sums of its real graphs' losses and of its real-graph count,
+    each summed over the ranks (psum), then divided. Differentiable with
+    respect to the model's parameters; the forward runs in train mode
+    and updates the BN running statistics, as a train step does.
+    ``mesh``, when given, checks the stack against its "edge" axis
+    (RankGrid.check)."""
+
+    def loss_fn(stacked):
+        if mesh is not None:
+            mesh.check(stacked, "edge")
+        batch = flatten_shards(stacked, 1)
+        model.train()
+        per = per_graph_loss(model(batch), batch.y, kind, mean, std)
+        S = stacked.gmask.shape[0]
+        num = psum((per * batch.gmask).reshape(S, -1).sum(1), "edge", 1)
+        den = psum(stacked.gmask.sum(1), "edge", 1)
+        return num / den.clamp_min(1.0)
+
+    return loss_fn

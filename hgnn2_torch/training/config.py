@@ -88,12 +88,13 @@ class TrainConfig:
     epochs: int = 40
     seed: int = 0
     eval_every: int = 1
-    # data parallelism: shard each batch over this many devices (0 = all
-    # local devices, 1 = single device). Dense gnn/lggnn batches only.
+    # data-parallel groups (0 = the devices of cfg.device's type). With
+    # edge_shards > 1, the data axis of an (dp, edge_shards) grid of
+    # molecule-aligned ranks; alone (dense batches) not ported yet (F3)
     dp: int = 1
-    # molecule-aligned edge sharding over this many devices (0 = all): the
-    # packed-model scaling mode with zero comm per operator apply
-    # (training/sharded.py). Mutually exclusive with dp.
+    # molecule-aligned shards (0 = the devices of cfg.device's type):
+    # packed gnn/lggnn or CCN, no exchange per operator apply
+    # (training/sharded.py); every rank on cfg.device
     edge_shards: int = 1
     # after training, replace the BN running statistics with the average
     # of every train batch's own statistics, then re-run the final eval

@@ -354,10 +354,12 @@ def test_fit_refuses_options_of_later_slices(tmp_path, field, value):
 
 @pytest.mark.parametrize("change", ["dp", "dataset", "arch"])
 def test_run_experiment_refuses_configs_of_later_slices(tmp_path, change):
-    """Named for the refusals it held before QM9 ingestion was ported: dp
-    and edge shards still raise (the parallel slice); a QM9 cache at
-    data_path now trains (tests/test_torch_ingest.py and
-    tests/test_torch_export_predict.py hold ingestion to JAX's)."""
+    """Named for the refusals it held before QM9 ingestion and the
+    sharded trainer were ported: dp without edge shards still raises (the
+    parallel slice's F3); a QM9 cache at data_path now trains
+    (tests/test_torch_ingest.py and tests/test_torch_export_predict.py
+    hold ingestion to JAX's), and so does a packed model over edge shards
+    (tests/test_torch_sharded.py holds it to JAX's)."""
     cfg = TrainConfig(batch_size=4, epochs=1, device="cpu",
                       log_path=str(tmp_path))
     cfg.data.dataset, cfg.data.n_synthetic = "qm9_synthetic", 8
@@ -368,9 +370,12 @@ def test_run_experiment_refuses_configs_of_later_slices(tmp_path, change):
         model, history = common.run_experiment(cfg)
         assert len(history) == 1 and np.isfinite(history[0]["train_loss"])
         return
-    if change == "dp":
-        cfg.dp = 2
-    else:  # --packed trains on one device; over edge shards is a later slice
+    if change == "arch":  # --packed over edge shards: the sharded trainer
         cfg.model.arch, cfg.model.packed, cfg.edge_shards = "gnn", True, 2
-    with pytest.raises(NotImplementedError):
+        model, history = common.run_experiment(cfg)
+        assert model.layer0_bn.axis_name == "edge"
+        assert len(history) == 1 and np.isfinite(history[0]["train_loss"])
+        return
+    cfg.dp = 2
+    with pytest.raises(NotImplementedError, match="F3"):
         common.run_experiment(cfg)

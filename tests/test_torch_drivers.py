@@ -85,10 +85,19 @@ def test_parallel_and_chunk_flags_parse_as_jax(monkeypatch, driver):
     ("main_ccn_qm9", "--chunks", "C3"), ("main_generate_ccn", "--chunks", "C3"),
     ("main_generate_ccn", "--dp", "(F)")])
 def test_other_values_raise_naming_their_slice(tmp_path, driver, flag, slice_):
+    """Other values than 1 raise naming their slice, but for --edge_shards,
+    which raised before the sharded trainer was ported and now trains
+    molecule-aligned shards (main_generate: PackedGNN classifying over 2
+    shards; tests/test_torch_sharded.py holds the trainer to JAX's)."""
     mine, _, _ = DRIVERS[driver]
     size = "--n" if driver.startswith("main_generate") else "--n_synthetic"
     argv = [flag, "2", "--device", "cpu", "--epochs", "1", "--L", "2",
             size, "12", "--bs", "4", "--log_path", str(tmp_path)]
+    if flag == "--edge_shards":
+        model, history = mine.main(argv)
+        assert model.dim_output == 2 and model.layer0_bn.axis_name == "edge"
+        assert len(history) == 1 and np.isfinite(history[0]["train_accuracy"])
+        return
     with pytest.raises(NotImplementedError, match=slice_.replace("(", r"\(")
                        .replace(")", r"\)")):
         mine.main(argv)

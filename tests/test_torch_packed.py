@@ -186,9 +186,22 @@ def test_masked_batch_norm_matches_jax(rng, compat):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **BN_TOL)
 
 
-def test_masked_batch_norm_axis_name_not_ported():
-    with pytest.raises(NotImplementedError):
-        layers.MaskedBatchNorm(3, axis_name="edge")
+def test_masked_batch_norm_axis_name_not_ported(rng):
+    """Named for the refusal it held before the sharded trainer was
+    ported: axis_name now pools the statistics over the ranks of mesh
+    axes, whose shards reach the module laid end to end, so on one batch
+    it computes what the module without it does (tests/
+    test_torch_sharded.py holds it to JAX's under shard_map); an unknown
+    axis raises."""
+    h = torch.from_numpy(rng.standard_normal((1, 20, 3)).astype(np.float32))
+    mask = torch.from_numpy((rng.random((1, 20)) < 0.6).astype(np.float32))
+    plain = layers.MaskedBatchNorm(3, generator=torch.Generator().manual_seed(1))
+    for axis in ("edge", ("data", "edge")):
+        bn = layers.MaskedBatchNorm(3, axis_name=axis)
+        bn.load_state_dict(plain.state_dict())
+        assert torch.equal(bn.train()(h, mask), plain.train()(h, mask))
+    with pytest.raises(ValueError, match="mesh axes"):
+        layers.MaskedBatchNorm(3, axis_name="model")
 
 
 def _models(kind, order, compat):

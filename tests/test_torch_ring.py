@@ -6,7 +6,8 @@ Pallas ring in interpret mode under shard_map on a one-axis mesh of the
 Tolerances: the ring within atol 1e-6 (the same adds in the same order,
 so in practice equal); the partitioned operators and models within atol
 1e-5 of JAX's and of the single-device bundle (segment sums split over
-ranks, in another order)."""
+ranks, in another order); a train-mode loss through the partitioned ops
+rtol 1e-5 and its gradients within 1e-5 x the largest |grad|."""
 
 import numpy as np
 import pytest
@@ -32,6 +33,18 @@ from hgnn2_torch.ops import ring
 from hgnn2_torch.parallel import spmd
 
 torch.set_num_threads(2)
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
 
 RING_TOL = dict(atol=1e-6, rtol=0)
 PART_TOL = dict(atol=1e-5, rtol=1e-5)
@@ -208,3 +221,43 @@ def test_partitioned_plain_reduce_is_differentiable(batches):
                                            use_ring=True)
     with pytest.raises(RuntimeError, match="no gradient"):
         model(pb, ops=ring_ops)
+
+
+def test_partitioned_lggnn_train_grads_match_jax():
+    """The edge-partitioned ops (PartitionedPackedOps, S = 2 ranks, plain
+    reduce) under a train-mode PackedLGGNN loss: loss and gradients
+    against JAX's partitioned_packed_ops on a ("data", "edge") mesh."""
+    recs = qm9.synthetic_qm9_like(6, seed=5)
+    tot_v = sum(r.n_nodes for r in recs)
+    tot_e = sum(r.n_dir_edges for r in recs)
+    kw = dict(node_capacity=tot_v + 8, edge_capacity=tot_e + 8, task=0)
+    pb = graphs.make_packed_batch(recs, device="cpu", **kw)
+    jpb = jgraphs.make_packed_batch(jqm9.synthetic_qm9_like(6, seed=5), **kw)
+    jmodel = jpacked.PackedLGGNN(n_features=3, n_layers=3, J=1, order=2)
+    variables = _np(jmodel.init(jax.random.key(1), jpb, train=True))
+    rest = {k: v for k, v in variables.items() if k != "params"}
+    mesh = jspmd.make_mesh(8, edge_axis=2)
+
+    def jloss(params, ops):
+        out, _ = jmodel.apply({"params": params, **rest}, jpb, train=True,
+                              mutable=["batch_stats"], ops=ops)
+        return (((out[:, 0] - jpb.y) ** 2) * jpb.gmask).sum() / jpb.gmask.sum()
+
+    with jax.sharding.set_mesh(mesh):
+        jops = jspmd.partitioned_packed_ops(mesh, jpb, J=1)
+        want, jgrads = jax.jit(jax.value_and_grad(
+            lambda p: jloss(p, jops)))(variables["params"])
+    model = packed.PackedLGGNN(3, 3, in_features=5, J=1, order=2).train()
+    model.load_state_dict(convert.packed_variables_from_flax(variables))
+    ops = spmd.partitioned_packed_ops(spmd.EdgeMesh(["cpu"] * 2), pb, J=1)
+    out = model(pb, ops=ops)
+    loss = (((out[:, 0] - pb.y) ** 2) * pb.gmask).sum() / pb.gmask.sum()
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(want), rtol=1e-5)
+    grads = dict(_leaves(convert.packed_variables_to_flax(
+        {n: p.grad for n, p in model.named_parameters()})["params"]))
+    jgrads = dict(_leaves(_np(jgrads)))
+    top = max(np.abs(g).max() for g in jgrads.values())
+    for path, g in grads.items():
+        np.testing.assert_allclose(g, jgrads[path], rtol=0, atol=1e-5 * top,
+                                   err_msg=str(path))
