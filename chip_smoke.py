@@ -127,6 +127,24 @@ Phases, each of which raises on failure (nothing is caught):
               device ms a step, busy share, molecules/s, and the
               flattened capacities against the unsharded batch's.
 
+ 12. dp       data parallelism: GNNSimple(L=15, h=1) through
+              cli.common.run_experiment with --dp 2 (2,048 molecules a
+              step split over 2 ranks of the card) against --dp 1 from the
+              same weights, both replaying graphs; then
+              hgnn2_torch.scripts.dryrun_multihost with 2 processes sharing
+              the card through gloo (GNNLineGraph L=5 h=1 order 2 over
+              1,024 molecules a process, PackedLGGNN L=5 h=1 over 2
+              processes x 2 ranks, the (2, 2) hybrid): the processes agree,
+              and each phase holds to its single-process control on the
+              card (losses, step-0 gradients); host ms a step and the
+              cross-process all-reduces a step.
+ 13. halo     one giant graph (8,192 nodes, bench_scaling.py's) over 4 halo
+              ranks on the card: halo_partitioned_spmm against
+              sparse.spmm; PackedLGGNN L=5 h=1 order 2 and PackedGNN L=15
+              h=1 through halo_packed_loss against the unpartitioned model
+              (loss, gradients); halo bytes against the all-reduce path's;
+              device ms of a halo step against the unpartitioned step.
+
 Phases 4 and 6-10 train through fit and phase 11 through fit_sharded,
 whose epochs replay CUDA graphs: a kernel wrapper's launch count moves
 when Python calls it (an eager step, a graph's warm-up runs and its
@@ -2603,6 +2621,277 @@ def phase_sharded(dev, card: str) -> dict[str, int]:
     return launches
 
 
+DP_RANKS = 2  # phase 12 (a): --dp 2 in one process
+MH_ARGV = ["--processes", "2", "--local_ranks", "2", "--steps", "3",
+           "--device", "cuda", "--backend", "gloo", "--layers", "5",
+           "--features", "1", "--dp_molecules", "1024", "--edge_molecules",
+           "256", "--hybrid_molecules", "256", "--timeout", "240"]
+MH_RTOL = 1e-4  # dry run against the control: losses, grads x max |grad|
+
+
+def _history_err(got: list, want: list) -> float:
+    """max relative difference of two histories' metrics (times apart)."""
+    if len(got) != len(want) or any(a.keys() != b.keys()
+                                    for a, b in zip(got, want)):
+        raise AssertionError(f"histories of other shapes: {got} vs {want}")
+    return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+               for a, b in zip(got, want) for k in b if k != "epoch_time_s")
+
+
+def _dry_run_vs_control(out: str, args, dev, card: str) -> None:
+    """Each phase of the dry run (its records under ``out``) against the
+    same phase run in this process over the global data (the control):
+    every process's losses within MH_RTOL relative, its step-0 gradients
+    within MH_RTOL x the control's max |grad|; host ms a step and the
+    cross-process all-reduces a step."""
+    from hgnn2_torch.scripts import dryrun_multihost as dry
+
+    for phase in dry.PHASES:
+        ctrl = dry.control(phase, args, dev)
+        recs = [torch.load(os.path.join(out, f"{phase}_{p}.pt"),
+                           weights_only=False) for p in range(args.processes)]
+        top = max(float(g.abs().max()) for g in ctrl["grads"].values())
+        loss_err = max(abs(a - b) / abs(b) for r in recs
+                       for a, b in zip(r["losses"], ctrl["losses"]))
+        grad_err = max(float((r["grads"][k] - g).abs().max()) / top
+                       for r in recs for k, g in ctrl["grads"].items())
+        comm = recs[0]["comm"]
+        print(f"  dry run {phase}: losses {[r['losses'] for r in recs]} vs "
+              f"the control's {ctrl['losses']} (one process, every rank on "
+              f"{card}): max rel loss err {loss_err:.3e}, step-0 gradients max "
+              f"err / max |grad| {grad_err:.3e} (tolerance {MH_RTOL} each); "
+              f"host ms a step {[round(r['host_ms'], 3) for r in recs]} "
+              f"(control {ctrl['host_ms']:.3f}); a step crosses processes in "
+              f"{comm['psum_calls']:g} psum all-reduces ({comm['psum_bytes']:g}"
+              f" B) and {comm['grad_calls']:g} gradient sum "
+              f"({comm['grad_bytes']:g} B)")
+        if loss_err > MH_RTOL or grad_err > MH_RTOL:
+            raise AssertionError(f"dry run {phase}: the processes disagree "
+                                 "with the single-process control")
+
+
+def phase_dp(dev, card: str) -> dict[str, int]:
+    """Data parallelism. (a) In one process: GNNSimple(L=15, h=1, J=1)
+    through cli.common.run_experiment with --dp 2 (phase 10's molecules,
+    2,048 a step; the batches split over 2 ranks of the card) against
+    --dp 1 from the same seeded flax-layout weights: histories within
+    TRAIN_LOSS_RTOL, both replaying CUDA graphs. (b) Over processes:
+    hgnn2_torch.scripts.dryrun_multihost with 2 processes sharing the card
+    through gloo at full width (GNNLineGraph L=5 h=1 order 2 over 1,024
+    molecules a process; PackedLGGNN L=5 h=1 over 2 processes x 2 ranks;
+    the (2, 2) hybrid), each phase held to its single-process control on
+    the card. Returns each kernel's launches in (a) and (b) (none run
+    there)."""
+    from hgnn2_torch.cli import common
+    from hgnn2_torch.nn import models
+    from hgnn2_torch.scripts import dryrun_multihost as dry
+
+    counters = _counters()
+    launches = dict.fromkeys(counters, 0)
+    t_phase = time.perf_counter()
+    F_in = _synthetic(N_MAIN_MOLS)[0].x.shape[1]
+    params = None
+    hist, replays = {}, {}
+    for dp in (DP_RANKS, 1):
+        cfg = _main_cfg(str(dev), os.path.join(OUT_DIR, f"dp{dp}"))
+        cfg.dp = dp
+        if params is None:
+            params = _flax_variables(common.build_model(cfg, "regression",
+                                                        F_in), 12)
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _Runs(models.GNNSimple) as runs:
+            model, hist[dp] = common.run_experiment(cfg, init_params=params)  # the main path
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        for k, c in counters.items():
+            launches[k] += c.launches
+        replays[dp] = runs.replays
+        steps = -(-int(0.8 * N_MAIN_MOLS) // cfg.batch_size)
+        print(f"  --dp {dp}: run_experiment, {TRAIN_EPOCHS} epochs x {steps} "
+              f"steps of {cfg.batch_size} molecules, {secs:.2f} s host clock "
+              f"on {card}; epoch 2 {hist[dp][-1]['epoch_time_s'] / steps * 1e3:.3f}"
+              f" ms a step host clock (evaluation included); "
+              f"{runs.replays} graph replays")
+        del model
+    err = _history_err(hist[DP_RANKS], hist[1])
+    print(f"  --dp {DP_RANKS} vs --dp 1 from the same weights: histories max "
+          f"rel err {err:.3e} (tolerance {TRAIN_LOSS_RTOL}); replays "
+          f"{replays}")
+    if err > TRAIN_LOSS_RTOL or not replays[1] or replays[DP_RANKS] != replays[1]:
+        raise AssertionError("--dp 2 and --dp 1 runs disagree")
+    t_a = time.perf_counter() - t_phase
+
+    torch.cuda.empty_cache()
+    out = os.path.join(OUT_DIR, "multihost")
+    t0 = time.perf_counter()
+    dry.main(MH_ARGV + ["--out", out])  # exits non-zero if a child fails
+    print(f"  dry run: {time.perf_counter() - t0:.1f} s host clock, 2 "
+          f"processes on {card} through gloo")
+    _dry_run_vs_control(out, dry.parse_args(MH_ARGV), dev, card)
+    print(f"  phase 12 took {time.perf_counter() - t_phase:.1f} s ((a) "
+          f"{t_a:.1f} s)")
+    return launches
+
+
+HALO_NODES = 8192
+HALO_RANKS = 4
+HALO_LOSS_RTOL = 1e-5
+HALO_GRAD_L2 = 1e-3  # gradients' relative L2 (JAX's halo bar)
+HALO_SPMM_TOL = 1e-5
+HALO_RUNS = (  # name, class, keywords, seed
+    ("PackedLGGNN L=5 h=1 order 2", "PackedLGGNN",
+     dict(n_features=1, n_layers=5, J=1, order=2), 13),
+    ("PackedGNN L=15 h=1", "PackedGNN", dict(n_features=1, n_layers=15, J=1),
+     14),
+)
+
+
+def _giant_record(n_nodes: int):
+    """bench_scaling.py's giant graph: a ring where each node links to
+    the next 3, plus n/64 random long-range edges, symmetric; 5 random
+    features a node."""
+    from hgnn2_torch import graphs
+
+    rng = np.random.default_rng(0)
+    a = np.zeros((n_nodes, n_nodes), np.float32)
+    for v in range(n_nodes):
+        for dd in range(1, 4):
+            a[v, (v + dd) % n_nodes] = 1.0
+    for _ in range(n_nodes // 64):  # sparse long-range edges
+        i, j = rng.integers(0, n_nodes, 2)
+        if i != j:
+            a[i, j] = 1.0
+    a = np.maximum(np.triu(a, 1), np.triu(a.T, 1))
+    a = a + a.T
+    return graphs.GraphRecord(
+        x=rng.standard_normal((n_nodes, 5)).astype(np.float32), adj=a,
+        y=np.array([1.0] * 13, np.float32))
+
+
+def _flat_grads(model) -> torch.Tensor:
+    return torch.cat([p.grad.reshape(-1) for p in model.parameters()])
+
+
+def _grad_step(model, loss_of) -> torch.Tensor:
+    """loss_of() from zeroed gradients, and its backward."""
+    model.zero_grad(set_to_none=False)
+    loss = loss_of()
+    loss.backward()
+    return loss
+
+
+def _grad_step_ms(model, loss_of, reps: int = 3) -> float:
+    """Median device ms of _grad_step: its forward and its backward each
+    behind its own spin (an eager backward enqueued behind the forward's
+    spin waits for the device; _eager_step_ms)."""
+    held = {}
+
+    def forward():
+        model.zero_grad(set_to_none=False)
+        held["loss"] = loss_of()
+
+    return float(np.median([
+        _spun_ms(forward, reps=1)
+        + _spun_ms(lambda: held["loss"].backward(), reps=1)
+        for _ in range(reps)]))
+
+
+def phase_halo(dev, card: str) -> dict[str, int]:
+    """The halo exchange for one giant graph (HALO_NODES nodes) split over
+    HALO_RANKS ranks on the card: halo_partitioned_spmm against
+    sparse.spmm; PackedLGGNN L=5 and PackedGNN L=15 (h=1, seeded
+    flax-layout weights) through halo_packed_loss against the
+    unpartitioned model on the same weights (loss, gradients); the halo
+    exchange's bytes against the all-reduce path's; device ms of a halo
+    step (forward and backward) against the unpartitioned step. Returns
+    each kernel's launches (none run here)."""
+    from hgnn2_torch import convert, graphs
+    from hgnn2_torch.nn import packed
+    from hgnn2_torch.ops import sparse
+    from hgnn2_torch.parallel import halo, spmd
+
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    t_phase = time.perf_counter()
+    rec = _giant_record(HALO_NODES)
+    node_cap, edge_cap = _packed_caps([rec])
+    pb = graphs.make_packed_batch([rec], node_capacity=node_cap,
+                                  edge_capacity=edge_cap, task=0, device=dev)
+    t0 = time.perf_counter()
+    bundle = halo.build_halo_lg_bundle(pb, HALO_RANKS, device=dev)
+    build_s = time.perf_counter() - t0
+    grid = spmd.RankGrid(1, HALO_RANKS, dev)
+    print(f"  giant graph: {rec.n_nodes} nodes, {rec.n_dir_edges} directed "
+          f"edges, {HALO_RANKS} halo ranks on {card}; halo tables built in "
+          f"{build_s * 1e3:.1f} ms (host); halo sizes {bundle.halo_sizes} "
+          f"against {bundle.nodes_per_shard} nodes a rank")
+
+    V = pb.num_node_slots
+    part = halo.build_halo_partition(pb.src.cpu().numpy(), pb.dst.cpu().numpy(),
+                                     pb.w.cpu().numpy(), V, HALO_RANKS,
+                                     device=dev)
+    x = torch.randn(V, 16, generator=torch.Generator().manual_seed(0)).to(dev)
+    got = halo.halo_partitioned_spmm(grid, part)(
+        x.reshape(HALO_RANKS, V // HALO_RANKS, 16)).reshape(V, 16)
+    err = _rel_err(got, sparse.spmm(pb.src, pb.dst, pb.w, x, V))
+    print(f"  halo_partitioned_spmm (F = 16) vs sparse.spmm: max err / max "
+          f"|value| {err:.3e} (tolerance {HALO_SPMM_TOL})")
+    if err > HALO_SPMM_TOL:
+        raise AssertionError("halo_partitioned_spmm disagrees with sparse.spmm")
+
+    F_in = rec.x.shape[1]
+    for name, cls_name, kw, seed in HALO_RUNS:
+        cls = getattr(packed, cls_name)
+        model = cls(in_features=F_in, bn_axis="edge", **kw)
+        params = _flax_variables(model, seed)
+        single = cls(in_features=F_in, **kw)
+        for m in (model, single):
+            m.load_state_dict(convert.packed_variables_from_flax(params))
+            m.to(dev).train()
+        log = halo.new_comm_log()
+        loss_fn = halo.halo_packed_loss(model, grid, bundle, comm_log=log)
+
+        def single_loss():
+            per = spmd.per_graph_loss(single(pb), pb.y, "regression", 0.0, 1.0)
+            return (per * pb.gmask).sum() / pb.gmask.sum().clamp_min(1.0)
+
+        lh = float(_grad_step(model, loss_fn).detach())
+        ls = float(_grad_step(single, single_loss).detach())
+        gh, gs = _flat_grads(model), _flat_grads(single)
+        loss_err = abs(lh - ls) / abs(ls)
+        grad_err = float((gh - gs).norm() / gs.norm())
+        hbytes = halo.halo_comm_bytes(log, bundle, HALO_RANKS)
+        ops = spmd.PartitionedPackedOps(spmd.EdgeMesh([dev] * HALO_RANKS), pb,
+                                        J=kw["J"])
+        with torch.no_grad():
+            single(pb, ops=ops)
+        pbytes = ops.comm_bytes_per_step()
+        ms_h = _grad_step_ms(model, loss_fn)
+        ms_s = _grad_step_ms(single, single_loss)
+        print(f"  {name}: halo loss {lh:.6f} vs unpartitioned {ls:.6f}, rel "
+              f"err {loss_err:.3e} (tolerance {HALO_LOSS_RTOL}); gradients "
+              f"rel L2 {grad_err:.3e} (tolerance {HALO_GRAD_L2}); exchanges a "
+              f"forward {hbytes['n_node_halo_fwd']} node + "
+              f"{hbytes['n_edge_halo_fwd']} edge halos, "
+              f"{hbytes['train_step_bytes_per_chip']:,} B a train step a rank "
+              f"against the all-reduce path's "
+              f"{pbytes['train_step_bytes_per_chip']:,.0f} B "
+              f"({hbytes['train_step_bytes_per_chip'] / pbytes['train_step_bytes_per_chip']:.3f}x);"
+              f" device ms a step (forward and backward) halo {ms_h:.3f} vs "
+              f"unpartitioned {ms_s:.3f}")
+        if loss_err > HALO_LOSS_RTOL or grad_err > HALO_GRAD_L2:
+            raise AssertionError(f"{name}: the halo step disagrees with the "
+                                 "unpartitioned one")
+        del model, single, ops
+    torch.cuda.empty_cache()
+    print(f"  phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return {k: c.launches for k, c in counters.items()}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -2666,11 +2955,18 @@ def main() -> None:
     print("phase 11: molecule-aligned sharded training (--edge_shards, --dp "
           "M --edge_shards N)")
     sharded_runs = phase_sharded(dev, card)
+
+    print("phase 12: data parallelism (--dp 2 in one process; 2 processes "
+          "through gloo)")
+    dp_runs = phase_dp(dev, card)
+
+    print("phase 13: the halo exchange for one giant graph")
+    halo_runs = phase_halo(dev, card)
     for key, row in rows.items():  # launches of the main paths' runs
         row["launches"] = (served[key] + trained[key] + packed[key]
                            + main_path[key] + lggnn[key] + packed_train[key]
                            + served_files[key] + captured[key]
-                           + sharded_runs[key])
+                           + sharded_runs[key] + dp_runs[key] + halo_runs[key])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "ms_in_run", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps(floor))

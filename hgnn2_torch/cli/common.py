@@ -11,12 +11,13 @@ every epoch, --resume goes on from the latest, --bn_recalib re-estimates
 the BN statistics after training. --edge_shards N trains molecule-aligned
 shards (training/sharded.py): the packed twin of gnn/lggnn, or the CCN
 model, over N ranks, and --dp M --edge_shards N over an (M, N) grid of
-them, every rank on the run's device. --dp other than 1 without edge
-shards (data parallelism over dense batches) and the CCN drivers'
---chunks other than 1 parse as in JAX and raise NotImplementedError
-naming the slice they come with (F3, C3). The export and predict entry
-points load their data, target stats and packed checkpoints through the
-helpers here.
+them, every rank on the run's device. --dp M alone is data parallelism
+over dense gnn/lggnn batches (parallel/spmd.py): M ranks of the run's
+device, each batch split over them, which in one process computes the
+single-device step of the whole batch. --chunks other than 1 (the CCN
+entry points) parses as in JAX and raises NotImplementedError naming the
+slice it comes with (C3). The export and predict entry points load their data,
+target stats and packed checkpoints through the helpers here.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from hgnn2_torch.nn import models
 from hgnn2_torch.nn import packed as packed_mod
 from hgnn2_torch.nn.layers import CompatConfig
 from hgnn2_torch.ops import ccn_fused
+from hgnn2_torch.parallel import spmd
 from hgnn2_torch.training import checkpoint as ckpt_lib
 from hgnn2_torch.training import metrics as metrics_lib
 from hgnn2_torch.training import train as train_lib
@@ -179,12 +181,6 @@ def build_packed_model(cfg: TrainConfig, kind: str, n_features: int,
     raise ValueError(f"no packed variant for arch {m.arch!r}")
 
 
-def _device_count(dev: torch.device) -> int:
-    """The devices of dev's type that "0 = all" flags count: the cards
-    for cuda, 1 for the CPU."""
-    return torch.cuda.device_count() if dev.type == "cuda" else 1
-
-
 def run_experiment(cfg: TrainConfig, init_params=None):
     """Train cfg's model on cfg.device. init_params: optional weights in
     the JAX models' flax layout (hgnn2_torch.convert; for gnn and lggnn,
@@ -192,21 +188,15 @@ def run_experiment(cfg: TrainConfig, init_params=None):
     start from in place of the seeded draw. With cfg.edge_shards > 1 the
     run goes through training.sharded.fit_sharded, as in the JAX package
     (there, the CCN kernels are on only when cfg.model.ccn_kernel says
-    so). Returns (model, history)."""
+    so). With cfg.dp > 1 and no edge shards the dense gnn/lggnn batches
+    are split over cfg.dp ranks of cfg.device (spmd.make_mesh,
+    ShardedLoader under CachedLoader, fit(mesh=)); CCN and packed models
+    raise JAX's ValueErrors, and so does a batch size that cfg.dp does
+    not divide. Returns (model, history)."""
     runtime.setup()
     dev = resolve_device(cfg.device)
-    n_es = cfg.edge_shards or _device_count(dev)  # 0 = every device
+    n_es = cfg.edge_shards or spmd.device_count(dev)  # 0 = every device
     use_packed = cfg.model.packed and cfg.model.arch in ("gnn", "lggnn")
-    if n_es <= 1 and (cfg.dp or _device_count(dev)) > 1:
-        if use_packed:
-            raise ValueError(
-                "--packed batches have flat node/edge leading axes that "
-                "--dp cannot shard batch-wise; scale packed models with "
-                "--edge_shards (molecule-aligned sharding)")
-        raise NotImplementedError(
-            "--dp other than 1 without --edge_shards (data parallelism over "
-            "dense batches) comes with the parallel slice (F), step F3; "
-            "--dp M --edge_shards N trains molecule-aligned shards")
     logging.basicConfig(level=logging.INFO, force=True)
     logging.getLogger("hgnn2_torch").setLevel(logging.INFO)
     records, kind, tstats, _source = load_records(cfg)
@@ -245,7 +235,7 @@ def run_experiment(cfg: TrainConfig, init_params=None):
         from hgnn2_torch.training import sharded
 
         # --dp 0: the devices left over by the edge axis
-        n_dp = max(cfg.dp or _device_count(dev) // n_es, 1)
+        n_dp = max(cfg.dp or spmd.device_count(dev) // n_es, 1)
         if is_ccn:
             model = build_model(cfg, kind, n_features)
         else:
@@ -279,6 +269,27 @@ def run_experiment(cfg: TrainConfig, init_params=None):
             else convert.dense_variables_from_flax(init_params))
     model.to(dev)
 
+    mesh = None
+    n_dp = cfg.dp or spmd.device_count(dev)  # 0 = every device
+    if n_dp > 1:
+        if is_ccn:
+            raise ValueError(
+                "--dp shards dense gnn/lggnn batches; scale CCN with "
+                "--edge_shards (vertex sharding, parallel/ccn_parallel.py)"
+            )
+        if use_packed:
+            raise ValueError(
+                "--packed batches have flat node/edge leading axes that "
+                "--dp cannot shard batch-wise; scale packed models with "
+                "--edge_shards (molecule-aligned sharding)"
+            )
+        if cfg.batch_size % n_dp:
+            raise ValueError(
+                f"batch size {cfg.batch_size} not divisible by dp={n_dp}"
+            )
+        mesh = spmd.make_mesh(n_dp, edge_axis=1, devices=dev)
+        log.info("data parallelism over %d ranks of %s", n_dp, mesh.device)
+
     def make_loader(split):
         recs = splits[split]
         if not recs:
@@ -300,6 +311,8 @@ def run_experiment(cfg: TrainConfig, init_params=None):
                 recs, cfg.batch_size, task=task,
                 with_line_graph=cfg.model.arch == "lggnn",
                 shuffle=inner_shuffle, device=dev)
+        if mesh is not None:
+            loader = spmd.ShardedLoader(loader, mesh)
         if cfg.data.cache_batches:
             loader = batching.CachedLoader(
                 loader, shuffle=shuffle and cfg.data.shuffle_batches,
@@ -310,7 +323,8 @@ def run_experiment(cfg: TrainConfig, init_params=None):
                     if cfg.checkpoint_path else None)
     model, history = train_lib.fit(model, make_loader, cfg, kind=kind,
                                    mean=mean, std=std, accuracy=accuracy,
-                                   logger=logger, checkpointer=checkpointer)
+                                   logger=logger, checkpointer=checkpointer,
+                                   mesh=mesh)
     if history:
         logger.log_final(**history[-1])
         log.info("final: %s", {k: round(v, 4) for k, v in history[-1].items()})
@@ -346,10 +360,10 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--shuffle", action="store_true")
     p.add_argument("--compat_reference", action="store_true")
     p.add_argument("--dp", type=int, default=1,
-                   help="data-parallel groups (0 = the devices of "
-                        "--device's type); with --edge_shards N an (M, N) "
-                        "grid of ranks, without it slice F3's dense data "
-                        "parallelism, not ported")
+                   help="data-parallel ranks (0 = the devices of --device's "
+                        "type): dense gnn/lggnn batches split over M ranks "
+                        "of --device, or with --edge_shards N an (M, N) "
+                        "grid of ranks")
     p.add_argument("--edge_shards", type=int, default=1,
                    help="molecule-aligned shards (0 = the devices of "
                         "--device's type): packed gnn/lggnn or CCN over N "

@@ -184,6 +184,7 @@ class PowerLayer(nn.Module):
     def __init__(self, fan_in: int, features_out: int,
                  compat: CompatConfig = CompatConfig(),
                  dtype: torch.dtype | None = None, gru: bool = False,
+                 bn_axis: str | tuple[str, ...] | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.dtype = dtype
@@ -192,7 +193,7 @@ class PowerLayer(nn.Module):
         self.gru = (GRUUpdate(fan_in, 2 * features_out, generator)
                     if gru else None)
         self.bn = MaskedBatchNorm(2 * features_out, compat=compat,
-                                  generator=generator)
+                                  axis_name=bn_axis, generator=generator)
 
     def forward(self, bundle, x: torch.Tensor,
                 mask: torch.Tensor) -> torch.Tensor:
@@ -240,6 +241,7 @@ class LGLayer(nn.Module):
                  J: int = 1, order: int = 1,
                  compat: CompatConfig = CompatConfig(),
                  dtype: torch.dtype | None = None,
+                 bn_axis: str | tuple[str, ...] | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         if order not in (1, 2, 3):
@@ -256,7 +258,7 @@ class LGLayer(nn.Module):
             self.add_module(f"{prefix}cv2", ref_linear(fan_in, features_out,
                                                        generator))
             self.add_module(f"{prefix}bn", MaskedBatchNorm(
-                state, compat=compat, generator=generator))
+                state, compat=compat, axis_name=bn_axis, generator=generator))
 
     def _pair(self, prefix: str, x1: torch.Tensor,
               mask: torch.Tensor) -> torch.Tensor:

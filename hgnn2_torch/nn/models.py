@@ -6,7 +6,10 @@ with hidden widths [in -> h], [2h -> h], [2h -> out]. Submodules carry
 the flax names (``layer{i}``, ``layerlast``; ``node_cv1``, ``edge_bn``...
 inside a line-graph layer), so hgnn2_torch.convert maps the nested flax
 trees one to one. Train mode is ``module.train()``: batch norm then uses
-batch statistics and updates its running ones.
+batch statistics and updates its running ones. bn_axis ("data") pools
+those statistics over the processes of a data-parallel grid
+(parallel/multihost.py), each holding its rows of the global batch; the
+JAX models need none, XLA pooling the global batch.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ class GNNSimple(nn.Module):
                  dim_output: int = 1, J: int = 1,
                  compat: CompatConfig = CompatConfig(),
                  dtype: torch.dtype | None = None, gru: bool = False,
+                 bn_axis: str | tuple[str, ...] | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.in_features, self.n_features = in_features, n_features
@@ -41,7 +45,7 @@ class GNNSimple(nn.Module):
         for i in range(n_layers - 1):
             self.add_module(f"layer{i}", layers.PowerLayer(
                 (J + 2) * width, n_features, compat, dtype=dtype, gru=gru,
-                generator=generator))
+                bn_axis=bn_axis, generator=generator))
             width = 2 * n_features
         self.layerlast = layers.ReadoutLayer(
             (J + 2) * width, dim_output, compat, dtype=dtype,
@@ -71,6 +75,7 @@ class GNNLineGraph(nn.Module):
                  dim_output: int = 1, J: int = 1, order: int = 1,
                  compat: CompatConfig = CompatConfig(),
                  dtype: torch.dtype | None = None, fused_ops: bool = False,
+                 bn_axis: str | tuple[str, ...] | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.in_features, self.n_features = in_features, n_features
@@ -83,7 +88,7 @@ class GNNLineGraph(nn.Module):
         for i in range(self.n_lg_layers):
             self.add_module(f"layer{i}", layers.LGLayer(
                 xw, xlw, n_features, J=J, order=order, compat=compat,
-                dtype=dtype, generator=generator))
+                dtype=dtype, bn_axis=bn_axis, generator=generator))
             xw = xlw = 2 * n_features
         self.layerlast = layers.LGReadoutLayer(
             (J + 2) * xw + 2 * xlw, dim_output, compat, dtype=dtype,

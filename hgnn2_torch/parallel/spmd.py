@@ -17,23 +17,33 @@ rank axis, or two for the hybrid (data, edge) layout). No molecule spans
 two shards, so every operator apply stays inside a shard; only the
 BatchNorm statistics and the loss's sums cross ranks, each through psum.
 
+Data parallelism over dense batches (make_mesh, shard_batch, replicate,
+ShardedLoader, make_dp_train_step; cli --dp M): JAX shards the padded
+batch over the "data" axis and XLA computes the step of the global batch.
+
 The JAX package drives every device of a shard_map from one process, and
 so does the port: an EdgeMesh is a list of rank devices in one process
-and a RankGrid a (data, edge) grid of ranks. So far all ranks sit on one
-device (every rank ``cuda:0`` on a card, ``cpu`` on the host). There the
-edge-partitioned all-reduce is kernel K5 over the ranks' buffers
-(ops/ring.py) or a plain sum, and the ranks of a molecule-aligned batch
-run as one batch: flatten_shards lays them end to end, rank-major, with
-each rank's indices moved past the ranks before it, so the model runs
-once over all of them and every cross-rank sum is already whole. Ranks on
-several devices or processes come with later steps of the parallel
-slice.
+and a RankGrid a (data, edge) grid of ranks. Within a process all ranks
+sit on one device (every rank ``cuda:0`` on a card, ``cpu`` on the host).
+There the edge-partitioned all-reduce is kernel K5 over the ranks'
+buffers (ops/ring.py) or a plain sum, the ranks of a molecule-aligned
+batch run as one batch (flatten_shards lays them end to end, rank-major,
+with each rank's indices moved past the ranks before it, so the model
+runs once over all of them and every cross-rank sum is already whole),
+and a dense batch sharded over "data" is the same batch, so the DP step
+is the unsharded step. A RankGrid may also span processes
+(parallel/multihost.py): then psum all-reduces over the process group of
+each axis that crosses them, and a step sums the replicated parameters'
+gradients over the processes in one place (backward). Ranks on several
+devices of one process come with F4.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Sequence
+
+import torch.distributed as dist
 
 import numpy as np
 import torch
@@ -238,38 +248,97 @@ def pad_edges_for_partition(arrays: dict, n_shards: int, num_nodes: int) -> dict
 
 AXES = ("data", "edge")
 
+# the grids entered with ``with grid:``, innermost last (psum reads it)
+_ACTIVE: list["RankGrid"] = []
+
+
+def device_count(dev: torch.device) -> int:
+    """The devices of dev's type that "0 = all" flags count: the cards
+    for cuda, 1 for the CPU."""
+    return torch.cuda.device_count() if dev.type == "cuda" else 1
+
 
 class RankGrid:
     """M x N ranks along the axes ("data", "edge") (counterpart of
-    Mesh(devices.reshape(M, N), ("data", "edge"))). Every rank sits on
-    ``device``, as an EdgeMesh's do so far."""
+    Mesh(devices.reshape(M, N), ("data", "edge"))).
+
+    In one process (the default) every rank sits on ``device``, as an
+    EdgeMesh's do. A grid over several processes (multihost.global_mesh)
+    holds, for each axis whose ranks lie in more than one process, the
+    torch.distributed process group along it (``groups``; None stands for
+    the default group of every process), spans ``n_processes`` processes
+    and keeps ``local`` = (M, N) of its ranks in this one, on its
+    ``device``. Entered as a context (``with grid:``) it is the grid whose
+    groups psum reduces over, as a shard_map's mesh is for lax.psum; the
+    step functions enter it. ``comm`` counts the cross-process all-reduces
+    (calls and bytes): psum's, forward and backward, and the gradient
+    sums (sum_grads)."""
 
     axis_names = AXES
 
     def __init__(self, n_data: int = 1, n_edge: int = 1,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 groups: dict | None = None,
+                 local: tuple[int, int] | None = None, n_processes: int = 1):
         if n_data < 1 or n_edge < 1:
             raise ValueError(f"a rank grid needs at least one rank an axis; "
                              f"got ({n_data}, {n_edge})")
         self.shape = {"data": n_data, "edge": n_edge}
         self.device = _indexed(resolve_device(device))
+        self.groups = dict(groups or {})
+        mesh_axes(tuple(self.groups) or AXES)
+        self.local = dict(zip(AXES, local or (n_data, n_edge)))
+        self.n_processes = n_processes
+        self.comm = dict.fromkeys(("psum_calls", "psum_bytes", "grad_calls",
+                                   "grad_bytes"), 0)
 
     @property
     def size(self) -> int:
         return self.shape["data"] * self.shape["edge"]
 
+    def __enter__(self) -> "RankGrid":
+        _ACTIVE.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _ACTIVE.remove(self)
+
     def check(self, stacked, axes) -> None:
         """Raises unless the stacked batch's leading rank dims are this
-        grid's sizes along ``axes`` and it lies on the grid's device, as
-        a shard_map over those axes requires."""
-        want = tuple(self.shape[a] for a in mesh_axes(axes))
+        process's ranks along ``axes`` and it lies on the grid's device,
+        as a shard_map over those axes requires."""
+        want = tuple(self.local[a] for a in mesh_axes(axes))
         got = tuple(stacked.gmask.shape[:len(want)])
         if got != want:
             raise ValueError(f"stacked ranks {got}, the grid's {axes} are "
-                             f"{want}")
+                             f"{want}" + (" in this process" if self.groups
+                                          else ""))
         if stacked.gmask.device != self.device:
             raise ValueError(f"batch on {stacked.gmask.device}, ranks on "
                              f"{self.device}")
+
+    def all_reduce(self, t: torch.Tensor, axis: str | None,
+                   kind: str = "psum") -> torch.Tensor:
+        """t (contiguous), summed in place over the processes along
+        ``axis`` (None: every process of the grid), counted under kind."""
+        group = self.groups.get(axis) if axis is not None else None
+        dist.all_reduce(t, group=group)
+        self.comm[f"{kind}_calls"] += 1
+        self.comm[f"{kind}_bytes"] += t.numel() * t.element_size()
+        return t
+
+    def sum_grads(self, params) -> None:
+        """The replicated parameters' gradients summed over the grid's
+        processes: one all-reduce of them laid end to end."""
+        grads = [p.grad for p in params if p.grad is not None]
+        if not grads or not self.groups:
+            return
+        flat = self.all_reduce(torch.cat([g.reshape(-1) for g in grads]),
+                               None, "grad")
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
 
 
 def mesh_axes(axis_name) -> tuple[str, ...]:
@@ -281,21 +350,183 @@ def mesh_axes(axis_name) -> tuple[str, ...]:
     return names
 
 
+class _AllReduce(torch.autograd.Function):
+    """The sum over the processes along one axis of a grid, forward and
+    backward. Every process that holds a copy of the sum may use it, so
+    its adjoint is the sum of each process's; a result every process
+    holds the same copy of (the loss) is then counted once a process,
+    which backward() undoes by backpropagating loss / n_processes."""
+
+    @staticmethod
+    def forward(ctx, x, grid, axis):
+        ctx.grid, ctx.axis = grid, axis
+        return grid.all_reduce(x.detach().clone(
+            memory_format=torch.contiguous_format), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.grid.all_reduce(g.clone(
+            memory_format=torch.contiguous_format), ctx.axis), None, None
+
+
 def psum(x: torch.Tensor, axis_name, ranked: int = 0) -> torch.Tensor:
     """The sum of x over the ranks of the mesh axes ``axis_name`` (a name
     or a tuple of names; JAX's lax.psum). Every cross-rank reduction of
-    the molecule-aligned path passes through here: BatchNorm's count,
-    total and squared deviations, the loss's and the metrics' sums.
+    the molecule-aligned and data-parallel paths passes through here:
+    BatchNorm's count, total and squared deviations, the loss's and the
+    metrics' sums.
 
-    While every rank lives in this process, x either carries the ranks on
-    its ``ranked`` leading dims, which are summed, or (ranked=0) already
-    holds the sum over every rank, the ranks having been flattened into
-    one batch (flatten_shards), and is returned as it is. Ranks in other
-    processes would make this an all-reduce over their process group."""
-    mesh_axes(axis_name)
+    The ranks of this process: x either carries them on its ``ranked``
+    leading dims, which are summed, or (ranked=0) already holds the sum
+    over them, the ranks having been flattened into one batch
+    (flatten_shards), or the batch being the process's whole share of a
+    dense data-parallel batch. Then, inside ``with grid:`` for a grid that
+    spans processes, the sum is all-reduced over the process group of
+    each axis of axis_name that crosses them (_AllReduce, differentiable;
+    the step backpropagates through backward())."""
+    names = mesh_axes(axis_name)
     if ranked:
-        return x.sum(dim=tuple(range(ranked)))
+        x = x.sum(dim=tuple(range(ranked)))
+    grid = _ACTIVE[-1] if _ACTIVE else None
+    if grid is not None:
+        for name in names:
+            if name in grid.groups:
+                x = _AllReduce.apply(x, grid, name)
     return x
+
+
+def backward(loss: torch.Tensor, grid: RankGrid | None, params) -> None:
+    """loss.backward() for the step of ``grid``. Over processes every
+    process holds the same loss: each backpropagates loss / n_processes
+    through psum's all-reduces, then the replicated parameters' gradients
+    are summed over the processes (grid.sum_grads, the one place a step
+    sums them), so each equals the gradient of the one global loss, not
+    n_processes times it. In one process, loss.backward()."""
+    if grid is None or not grid.groups:
+        loss.backward()
+        return
+    (loss / grid.n_processes).backward()
+    grid.sum_grads(params)
+
+
+def per_graph_loss(out: torch.Tensor, y: torch.Tensor, kind: str,
+                   mean: float, std: float) -> torch.Tensor:
+    """Each graph's loss: cross-entropy of its logits, or the squared
+    error against its mean/std-normalized target."""
+    if kind == "classification":
+        return F.cross_entropy(out, y.long(), reduction="none")
+    return (out[:, 0] - (y - mean) / (std + 1e-8)) ** 2
+
+
+def metric_sums(out, y, gmask, kind: str, mean: float, std: float,
+                n_ranks: int = 1, axes=("edge",)):
+    """Each rank's masked sums of (loss, metric) over its real graphs and
+    its real-graph count, summed over the ranks of ``axes`` (psum); the
+    graphs are rank-major, n_ranks of them in this process. Returns (num
+    (2,), den): den is the RAW real-graph count, so an all-padding batch
+    counts 0; only the division sites clamp it."""
+    per = per_graph_loss(out, y, kind, mean, std)
+    if kind == "classification":
+        metric = (out.argmax(-1) == y).float()
+    else:
+        metric = (out[:, 0] - (y - mean) / (std + 1e-8)).abs()
+    num = (torch.stack([per, metric], 1) * gmask[:, None]).reshape(
+        n_ranks, -1, 2).sum(1)
+    den = gmask.reshape(n_ranks, -1).sum(1)
+    return psum(num, axes, 1), psum(den, axes, 1)
+
+
+# ---------------------------------------------------------------------------
+# Data parallelism over dense batches (the "data" axis)
+# ---------------------------------------------------------------------------
+
+
+def make_mesh(n_devices: int | None = None, edge_axis: int = 1,
+              devices=None) -> RankGrid:
+    """A ("data", "edge") grid of n_devices ranks, (n / edge_axis,
+    edge_axis). Every rank sits on one device: ``devices`` names it (a
+    device, or a sequence that repeats one device; default cuda), and
+    n_devices defaults to the devices of its type (or the sequence's
+    length). Ranks on several devices come with F4."""
+    if devices is None or isinstance(devices, (str, torch.device)):
+        dev = resolve_device(devices)
+        avail = device_count(dev)
+    else:
+        devs = {_indexed(torch.device(d)) for d in devices}
+        if len(devs) != 1:
+            raise NotImplementedError(
+                f"ranks on several devices ({sorted(map(str, devs))}) come "
+                "with step F4 of the parallel slice")
+        dev, avail = next(iter(devs)), len(devices)
+    n = n_devices or avail
+    if n % edge_axis != 0:
+        raise ValueError(f"n_devices {n} not divisible by edge axis {edge_axis}")
+    return RankGrid(n // edge_axis, edge_axis, dev)
+
+
+def shard_batch(mesh: RankGrid, batch):
+    """Every tensor field of a batch split on its leading (batch) axis
+    over the grid's "data" ranks of this process; 0-d fields replicate.
+    The ranks share the grid's device, so the batch moves there whole,
+    its split checked: a leading axis that the "data" ranks do not divide
+    raises ValueError, as JAX's device_put to the sharding does."""
+    n = mesh.local["data"]
+    fields = {}
+    for f in dataclasses.fields(batch):
+        v = getattr(batch, f.name)
+        if isinstance(v, torch.Tensor):
+            if v.dim() and v.shape[0] % n:
+                raise ValueError(f"{f.name}: batch axis {v.shape[0]} not "
+                                 f"divisible by the {n} data ranks")
+            fields[f.name] = v.to(mesh.device)
+    return dataclasses.replace(batch, **fields)
+
+
+def replicate(mesh: RankGrid, tree):
+    """A module (moved in place and returned), a tensor, or a dict, list
+    or tuple of them, on the grid's device: every rank's copy."""
+    if isinstance(tree, (torch.nn.Module, torch.Tensor)):
+        return tree.to(mesh.device)
+    if isinstance(tree, dict):
+        return {k: replicate(mesh, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(replicate(mesh, v) for v in tree)
+    return tree
+
+
+class ShardedLoader:
+    """Wraps a batch loader so every yielded batch is sharded on its
+    leading (batch) axis over the grid's "data" ranks (shard_batch).
+    Composes under data.batching.CachedLoader, which then caches the
+    sharded batches: the trainer's DP path."""
+
+    def __init__(self, inner, mesh: RankGrid):
+        self.inner = inner
+        self.mesh = mesh
+
+    def __iter__(self):
+        for batch in self.inner:
+            yield shard_batch(self.mesh, batch)
+
+    def __len__(self) -> int:
+        return len(self.inner)
+
+
+def make_dp_train_step(train_step, mesh: RankGrid):
+    """A train step (training.train.make_train_step) for data
+    parallelism over ``mesh``. JAX's step of a batch sharded over "data"
+    computes, under XLA's global semantics, the single-device step of the
+    whole batch; so is the port's, train_step itself. In one process the
+    ranks share one device and the batch is whole (its CUDA graphs
+    included). Over processes each holds its rows of the global batch,
+    and train_step must be built over the grid (make_train_step(...,
+    grid=mesh)): its loss's and metrics' sums cross the processes (psum
+    over "data"; the model's BatchNorm is built with axis_name "data"),
+    its gradients are summed once (backward), and it runs eagerly."""
+    if mesh.groups and train_step.grid is not mesh:
+        raise ValueError("a grid over processes needs the step built over "
+                         "it: make_train_step(..., grid=mesh)")
+    return train_step
 
 
 def partition_records(records, n_shards: int) -> list[list]:
@@ -430,15 +661,6 @@ def local_partitioned_spmm(mesh: RankGrid, nodes_per_shard: int):
         return out.reshape(x.shape)
 
     return apply
-
-
-def per_graph_loss(out: torch.Tensor, y: torch.Tensor, kind: str,
-                   mean: float, std: float) -> torch.Tensor:
-    """Each graph's loss: cross-entropy of its logits, or the squared
-    error against its mean/std-normalized target."""
-    if kind == "classification":
-        return F.cross_entropy(out, y.long(), reduction="none")
-    return (out[:, 0] - (y - mean) / (std + 1e-8)) ** 2
 
 
 def sharded_packed_loss(model, mesh: RankGrid | None = None,

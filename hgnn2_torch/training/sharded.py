@@ -184,22 +184,11 @@ class ShardedCCNLoader(_ShardedLoaderBase):
 
 def _local_metric_sums(out, batch, n_ranks: int, kind: str, mean: float,
                        std: float, axes=("edge",)):
-    """Each rank's masked sums of (loss, metric) over its real graphs and
-    its real-graph count, summed over the ranks of ``axes`` (spmd.psum);
-    ``batch`` is the flattened stacked batch, its graphs rank-major.
-    Returns (num (2,), den): den is the RAW real-graph count, reported as
-    'count' and weighting epoch means, so an all-padding batch counts 0;
-    only the division sites clamp it."""
-    y, gmask = batch.y, batch.gmask
-    per = spmd.per_graph_loss(out, y, kind, mean, std)
-    if kind == "classification":
-        metric = (out.argmax(-1) == y).float()
-    else:
-        metric = (out[:, 0] - (y - mean) / (std + 1e-8)).abs()
-    num = (torch.stack([per, metric], 1) * gmask[:, None]).reshape(
-        n_ranks, -1, 2).sum(1)
-    den = gmask.reshape(n_ranks, -1).sum(1)
-    return spmd.psum(num, axes, 1), spmd.psum(den, axes, 1)
+    """spmd.metric_sums of the flattened stacked batch ``batch``, its
+    graphs rank-major over n_ranks ranks: (num (2,), den), each summed
+    over the ranks of ``axes``."""
+    return spmd.metric_sums(out, batch.y, batch.gmask, kind, mean, std,
+                            n_ranks, axes)
 
 
 def _metric_names(num, den, kind: str) -> dict:
@@ -218,7 +207,11 @@ def make_sharded_step_fns(model, mesh: spmd.RankGrid, optimizer, scheduler,
     each stack checked against ``mesh`` (RankGrid.check);
     the loss's and metrics' sums and the model's BN statistics (bn_axis =
     axes) are summed over every rank of them, so the math is that of one
-    global batch whatever the factorization.
+    global batch whatever the factorization. A grid over processes
+    (multihost.global_mesh) takes this process's rows of the stack; its
+    psums all-reduce across the processes, the gradients are summed over
+    them (spmd.backward), and its steps run eagerly (gloo's collectives
+    cannot be captured).
 
     train_step(stacked) -> metrics (device tensors, 'count' included):
     one optimizer step, then one schedule step; on CUDA one CUDA graph a
@@ -232,13 +225,16 @@ def make_sharded_step_fns(model, mesh: spmd.RankGrid, optimizer, scheduler,
         optimizer.zero_grad(set_to_none=False)
         batch = spmd.flatten_shards(stacked, lead)
         n_ranks = batch.n_graphs // stacked.gmask.shape[lead]
-        num, den = _local_metric_sums(model(batch), batch, n_ranks, kind,
-                                      mean, std, axes)
-        (num[0] / den.clamp_min(1.0)).backward()
+        with mesh:
+            num, den = _local_metric_sums(model(batch), batch, n_ranks, kind,
+                                          mean, std, axes)
+            spmd.backward(num[0] / den.clamp_min(1.0), mesh,
+                          model.parameters())
         optimizer.step()
         return num.detach(), den.detach()
 
-    graphs = train_lib._Graphs(model, optimizer)
+    # collectives across processes (gloo) cannot be captured: eager there
+    graphs = train_lib._Graphs(model, optimizer, eager=bool(mesh.groups))
     statics: dict = {}
 
     def named(num, den) -> dict:
@@ -264,8 +260,9 @@ def make_sharded_step_fns(model, mesh: spmd.RankGrid, optimizer, scheduler,
         model.eval()
         batch = spmd.flatten_shards(stacked, lead)
         n_ranks = batch.n_graphs // stacked.gmask.shape[lead]
-        return named(*_local_metric_sums(model(batch), batch, n_ranks, kind,
-                                         mean, std, axes))
+        with mesh:
+            return named(*_local_metric_sums(model(batch), batch, n_ranks,
+                                             kind, mean, std, axes))
 
     train_step.body, train_step.graphs, train_step.kind = body, graphs, kind
     train_step.model, train_step.optimizer = model, optimizer
@@ -307,7 +304,8 @@ def make_sharded_scan_epoch(train_step, mesh: spmd.RankGrid | None = None,
         scan.add([torch.stack([*(mets[k] * den for k in names), den])])
 
     scanned = train_lib._scanned(
-        train_lib._Graphs(train_step.model, train_step.optimizer), body,
+        train_lib._Graphs(train_step.model, train_step.optimizer,
+                          eager=train_step.graphs.eager), body,
         train_step.scheduler.step)
 
     def stack_batches(batches):

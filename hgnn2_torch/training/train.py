@@ -42,6 +42,7 @@ train_step, run_epoch and evaluate stay as library functions.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import time
@@ -51,6 +52,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from hgnn2_torch.parallel import spmd
 from hgnn2_torch.training import metrics as metrics_lib
 from hgnn2_torch.training import optim
 from hgnn2_torch.training.checkpoint import Checkpointer
@@ -68,18 +70,20 @@ _POOLS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
 
 def _loss_and_metrics(out, y, gmask, kind: str, mean: float, std: float):
-    denom = gmask.sum().clamp_min(1.0)
+    """The batch's loss and metric. Their sums and the graph count pass
+    through one spmd.psum over "data": the identity, unless the step runs
+    inside a grid whose "data" axis spans processes."""
     if kind == "classification":
-        ce = F.cross_entropy(out, y.long(), reduction="none")
-        loss = (ce * gmask).sum() / denom
-        acc = ((out.argmax(-1) == y) * gmask).sum() / denom
-        return loss, {"loss": loss, "accuracy": acc}
-    pred = out[:, 0]
-    t = (y - mean) / (std + 1e-8)
-    err = pred - t
-    loss = ((err ** 2) * gmask).sum() / denom
-    mae = (err.abs() * gmask).sum() / denom
-    return loss, {"loss": loss, "mae": mae}
+        per = F.cross_entropy(out, y.long(), reduction="none")
+        name, metric = "accuracy", out.argmax(-1) == y
+    else:
+        err = out[:, 0] - (y - mean) / (std + 1e-8)
+        per, name, metric = err ** 2, "mae", err.abs()
+    sums = spmd.psum(torch.stack([(per * gmask).sum(), (metric * gmask).sum(),
+                                  gmask.sum()]), "data")
+    denom = sums[2].clamp_min(1.0)
+    loss = sums[0] / denom
+    return loss, {"loss": loss, name: sums[1] / denom}
 
 
 def _graph_mask(batch) -> torch.Tensor:
@@ -91,27 +95,30 @@ def _graph_mask(batch) -> torch.Tensor:
 
 
 def _train_body(model, optimizer, batch, kind: str, mean: float,
-                std: float) -> dict:
+                std: float, grid=None) -> dict:
     """One optimizer step's device work (JAX's _train_body), the body of
     every train program. Gradients are zeroed in place, not dropped, so
-    a captured step keeps writing the same gradient tensors. Returns the
-    batch's metrics from the forward before the update."""
+    a captured step keeps writing the same gradient tensors. Inside
+    ``grid`` (a parallel.spmd.RankGrid) the loss's sums cross its
+    processes and spmd.backward sums the gradients once over them.
+    Returns the batch's metrics from the forward before the update."""
     model.train()
     optimizer.zero_grad(set_to_none=False)
-    out = model(batch)
-    loss, mets = _loss_and_metrics(out, batch.y, _graph_mask(batch), kind,
-                                   mean, std)
-    loss.backward()
+    with grid or contextlib.nullcontext():
+        out = model(batch)
+        loss, mets = _loss_and_metrics(out, batch.y, _graph_mask(batch), kind,
+                                       mean, std)
+        spmd.backward(loss, grid, model.parameters())
     optimizer.step()
     return {k: v.detach() for k, v in mets.items()}
 
 
 def train_step(model, optimizer, scheduler, batch, kind: str = "regression",
-               mean: float = 0.0, std: float = 1.0) -> dict:
+               mean: float = 0.0, std: float = 1.0, grid=None) -> dict:
     """One eager optimizer step on one batch, then one schedule step.
     Returns the batch's metrics (on the device, from the forward before
     the update)."""
-    mets = _train_body(model, optimizer, batch, kind, mean, std)
+    mets = _train_body(model, optimizer, batch, kind, mean, std, grid)
     scheduler.step()
     return mets
 
@@ -159,8 +166,9 @@ def group_batches(batches) -> list[list]:
 def group_stacked_batches(batches) -> list:
     """JAX's group_stacked_batches: the same-shape groups of ``batches``
     in first-appearance order, each one batch whose tensor fields are the
-    group's stacked on a new leading axis, on the batches' device. There
-    is no mesh argument: meshes come with the parallel slice."""
+    group's stacked on a new leading axis, on the batches' device. JAX's
+    mesh argument shards each stack's batch axis over "data"; the port's
+    ranks of one process share its device, so it needs none."""
     return [dataclasses.replace(g[0], **{
         name: torch.stack([getattr(b, name) for b in g])
         for name in _tensor_fields(g[0])}) for g in group_batches(batches)]
@@ -203,13 +211,15 @@ def groups_in_order(groups: list[list], rng: np.random.Generator | None):
 
 class _Graphs:
     """CUDA graphs of bodies (functions of no argument that read and write
-    fixed tensors), one a key, all in the model's memory pool. On the CPU
-    a call runs the body. capture_s, pool_bytes and replays are for the
-    records."""
+    fixed tensors), one a key, all in the model's memory pool. On the CPU,
+    or when ``eager`` (a body with collectives across processes, which
+    cannot be captured), a call runs the body. capture_s, pool_bytes and
+    replays are for the records."""
 
-    def __init__(self, model: torch.nn.Module, optimizer=None):
-        self.model, self.optimizer = model, optimizer
-        self.cuda = next(model.parameters()).is_cuda
+    def __init__(self, model: torch.nn.Module, optimizer=None,
+                 eager: bool = False):
+        self.model, self.optimizer, self.eager = model, optimizer, eager
+        self.cuda = next(model.parameters()).is_cuda and not eager
         self.graphs: dict = {}
         self.capture_s = 0.0
         self.replays = 0
@@ -290,27 +300,29 @@ def _static_batch(statics: dict, key, batch):
 
 
 def make_train_step(model, optimizer, scheduler, kind: str = "regression",
-                    mean: float = 0.0, std: float = 1.0):
+                    mean: float = 0.0, std: float = 1.0, grid=None):
     """JAX's make_train_step: step(batch) -> the batch's metrics. On CUDA
     one graph a batch shape holds the forward, the loss, the backward and
     the optimizer's update; each batch is copied into its static buffers
     and the schedule steps after the replay. On the CPU, train_step.
-    step.graphs holds the graphs."""
-    graphs = _Graphs(model, optimizer)
+    grid: a parallel.spmd.RankGrid whose "data" axis spans processes
+    (spmd.make_dp_train_step); its collectives cannot be captured, so its
+    steps run eagerly. step.graphs holds the graphs."""
+    graphs = _Graphs(model, optimizer, eager=bool(grid and grid.groups))
     statics: dict = {}
 
     def step(batch) -> dict:
         if not graphs.cuda:
             return train_step(model, optimizer, scheduler, batch, kind, mean,
-                              std)
+                              std, grid)
         key = _batch_key(batch)
         static = _static_batch(statics, key, batch)
         mets = graphs(key, lambda: _train_body(model, optimizer, static,
-                                               kind, mean, std))
+                                               kind, mean, std, grid))
         scheduler.step()
         return {k: v.clone() for k, v in mets.items()}
 
-    step.graphs = graphs
+    step.graphs, step.grid = graphs, grid
     return step
 
 
@@ -673,10 +685,21 @@ def fit(
     generator and loader epoch counters start afresh, so its batch order
     is not that of an uninterrupted run. SIGTERM or SIGINT stops the run
     after the epoch under way, once it is saved. cfg.bn_recalibrate
-    appends a row evaluated after recalibrate_bn. Meshes (the parallel
-    slice) raise."""
-    if mesh is not None:
-        raise NotImplementedError("meshes come with the parallel slice")
+    appends a row evaluated after recalibrate_bn.
+
+    mesh: a parallel.spmd.RankGrid for data parallelism (cli --dp M), as
+    in JAX: the loaders yield batches sharded over its "data" ranks
+    (spmd.ShardedLoader) and the model is replicated to them. Its ranks
+    share one device in this process, so every program is the
+    single-device one (spmd.make_dp_train_step), scanned epochs included.
+    A grid over processes raises: the multi-process steps are driven
+    step by step (hgnn2_torch.scripts.dryrun_multihost), as JAX's CLI
+    has no multi-process trainer."""
+    if mesh is not None and mesh.groups:
+        raise NotImplementedError(
+            "fit trains over the ranks of one process; a grid over "
+            "processes is driven step by step (spmd.make_dp_train_step, "
+            "training.sharded.make_sharded_step_fns)")
     train_loader = make_loader("train")
     # built once: with CachedLoader the eval batches stay on the device
     eval_loaders = {split: make_loader(split) for split in ("valid", "test")}
@@ -686,6 +709,8 @@ def fit(
     else:  # as in the JAX package, this advances a shuffling loader's epoch
         sample = next(iter(train_loader))
     model.to(sample.x.device)
+    if mesh is not None:
+        spmd.replicate(mesh, model)
     optimizer, scheduler = optim.build_optimizer(cfg.optim, steps_per_epoch,
                                                  model.parameters())
     start_epoch = 0
@@ -723,6 +748,8 @@ def fit(
                     loader.release()
         log.info("scanned epochs: %d batch shape group(s)", len(groups))
     step_fn = make_train_step(model, optimizer, scheduler, kind, mean, std)
+    if mesh is not None:
+        step_fn = spmd.make_dp_train_step(step_fn, mesh)
     log.info("training: %d epochs x %d steps/epoch", cfg.epochs - start_epoch,
              steps_per_epoch)
     run_err = metrics_lib.RunningAverage()

@@ -41,6 +41,7 @@ from hgnn2_torch import convert
 from hgnn2_torch.cli import common, main_ccn_qm9
 from hgnn2_torch.data import batching, qm9, stats, synthetic
 from hgnn2_torch.nn import ccn
+from hgnn2_torch.parallel import spmd
 from hgnn2_torch.training import optim, train
 from hgnn2_torch.training.checkpoint import Checkpointer
 from hgnn2_torch.training.config import OptimConfig, TrainConfig
@@ -327,19 +328,26 @@ def test_main_ccn_qm9_matches_jax_run_experiment(tmp_path, monkeypatch):
     ("checkpointer", object()), ("mesh", object()), ("bn_recalibrate", True),
     ("resume", True)])
 def test_fit_refuses_options_of_later_slices(tmp_path, field, value):
-    """Named for the refusals it held before the training extras were
-    ported: a mesh still raises (the parallel slice); a checkpointer, BN
-    recalibration and resume now run on a CCN1D, which has no BN, so
-    recalibration appends no row (tests/test_torch_train_extras.py holds
-    each to JAX's)."""
+    """Named for the refusals it held before the training extras and the
+    parallel modes were ported: a mesh in this process now trains (data
+    parallelism, tests/test_torch_dp.py holds it to JAX's) and only a
+    grid over processes raises; a checkpointer, BN recalibration and
+    resume now run on a CCN1D, which has no BN, so recalibration appends
+    no row (tests/test_torch_train_extras.py holds each to JAX's)."""
     cfg = TrainConfig(batch_size=4, epochs=1)
     model = ccn.CCN1D(n_features=5, hidden=2, n_layers=1)
-    if field == "mesh":
-        with pytest.raises(NotImplementedError):
-            train.fit(model, lambda split: None, cfg, mesh=value)
-        return
     loader = batching.CCNLoader(qm9.synthetic_qm9_like(8, seed=0), 4, task=0,
                                 device="cpu")
+    if field == "mesh":
+        over = spmd.RankGrid(2, 1, "cpu", groups={"data": None},
+                             local=(1, 1), n_processes=2)
+        with pytest.raises(NotImplementedError):
+            train.fit(model, lambda split: None, cfg, mesh=over)
+        _, history = train.fit(
+            model, lambda split: loader if split == "train" else None, cfg,
+            mesh=spmd.make_mesh(2, devices="cpu"))
+        assert len(history) == 1 and np.isfinite(history[0]["train_loss"])
+        return
     ckpt = Checkpointer(str(tmp_path))
     if field != "checkpointer":
         setattr(cfg, field, value)
@@ -355,8 +363,10 @@ def test_fit_refuses_options_of_later_slices(tmp_path, field, value):
 @pytest.mark.parametrize("change", ["dp", "dataset", "arch"])
 def test_run_experiment_refuses_configs_of_later_slices(tmp_path, change):
     """Named for the refusals it held before QM9 ingestion and the
-    sharded trainer were ported: dp without edge shards still raises (the
-    parallel slice's F3); a QM9 cache at data_path now trains
+    parallel modes were ported: dp without edge shards raises JAX's
+    ValueError for CCN, which it cannot shard batch-wise
+    (tests/test_torch_dp.py holds the message to JAX's; dense gnn/lggnn
+    train); a QM9 cache at data_path now trains
     (tests/test_torch_ingest.py and tests/test_torch_export_predict.py
     hold ingestion to JAX's), and so does a packed model over edge shards
     (tests/test_torch_sharded.py holds it to JAX's)."""
@@ -377,5 +387,5 @@ def test_run_experiment_refuses_configs_of_later_slices(tmp_path, change):
         assert len(history) == 1 and np.isfinite(history[0]["train_loss"])
         return
     cfg.dp = 2
-    with pytest.raises(NotImplementedError, match="F3"):
+    with pytest.raises(ValueError, match="scale CCN with --edge_shards"):
         common.run_experiment(cfg)

@@ -3,8 +3,10 @@ chunks, and its drivers debug, sweep and main_generate_ccn, against the
 JAX package on the CPU.
 
 --dp, --edge_shards (every training entry point) and --chunks (the CCN
-ones) parse as JAX's do, into the same TrainConfig; a value other than 1
-raises NotImplementedError naming the slice that brings it. The drivers
+ones) parse as JAX's do, into the same TrainConfig; --dp and
+--edge_shards other than 1 train (or refuse as JAX does), --chunks
+other than 1 raises NotImplementedError naming the slice that brings it
+(C3). debug, sweep and main_generate_ccn
 run from JAX's initial weights (hgnn2_torch.convert), and their histories,
 rankings and summaries are held to JAX's within the CLI tests' rtol 2e-3
 (a bias that only shifts what BN subtracts has a rounding-level gradient,
@@ -85,10 +87,13 @@ def test_parallel_and_chunk_flags_parse_as_jax(monkeypatch, driver):
     ("main_ccn_qm9", "--chunks", "C3"), ("main_generate_ccn", "--chunks", "C3"),
     ("main_generate_ccn", "--dp", "(F)")])
 def test_other_values_raise_naming_their_slice(tmp_path, driver, flag, slice_):
-    """Other values than 1 raise naming their slice, but for --edge_shards,
-    which raised before the sharded trainer was ported and now trains
-    molecule-aligned shards (main_generate: PackedGNN classifying over 2
-    shards; tests/test_torch_sharded.py holds the trainer to JAX's)."""
+    """Other values than 1 raise naming their slice, but for the parallel
+    flags, which raised before the parallel slice (F) was ported:
+    --edge_shards trains molecule-aligned shards (main_generate: PackedGNN
+    classifying over 2 shards; tests/test_torch_sharded.py holds the
+    trainer to JAX's), --dp trains the dense GNN data-parallel
+    (main_gnn_qm9) and refuses CCN with JAX's ValueError
+    (main_generate_ccn; tests/test_torch_dp.py holds both to JAX's)."""
     mine, _, _ = DRIVERS[driver]
     size = "--n" if driver.startswith("main_generate") else "--n_synthetic"
     argv = [flag, "2", "--device", "cpu", "--epochs", "1", "--L", "2",
@@ -97,6 +102,15 @@ def test_other_values_raise_naming_their_slice(tmp_path, driver, flag, slice_):
         model, history = mine.main(argv)
         assert model.dim_output == 2 and model.layer0_bn.axis_name == "edge"
         assert len(history) == 1 and np.isfinite(history[0]["train_accuracy"])
+        return
+    if flag == "--dp" and mine is main_gnn_qm9:
+        model, history = mine.main(argv)
+        assert model.n_layers == 2
+        assert len(history) == 1 and np.isfinite(history[0]["train_loss"])
+        return
+    if flag == "--dp":
+        with pytest.raises(ValueError, match="scale CCN with --edge_shards"):
+            mine.main(argv)
         return
     with pytest.raises(NotImplementedError, match=slice_.replace("(", r"\(")
                        .replace(")", r"\)")):

@@ -483,9 +483,13 @@ def test_rank_grid_checks_the_stacks():
 
 
 def test_plain_dp_still_raises_naming_f3(tmp_path):
+    """Named for the refusal it held before step F3 was ported: --dp 2
+    without edge shards now trains the dense line-graph GNN data-parallel
+    (tests/test_torch_dp.py holds it to JAX's), not the sharded trainer;
+    --dp 0 --edge_shards 0 on the CPU counts one device."""
     _, cfg = _cfgs(tmp_path, "dp", "lggnn", 2, 1)
-    with pytest.raises(NotImplementedError, match="F3"):
-        common.run_experiment(cfg)
+    model, history = common.run_experiment(cfg)
+    assert type(model).__name__ == "GNNLineGraph" and len(history) == 2
     _, cfg = _cfgs(tmp_path, "dp0", "lggnn", 0, 0)  # 0: the CPU counts 1
     assert len(common.run_experiment(cfg)[1]) == 2
 
