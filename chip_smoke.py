@@ -144,6 +144,18 @@ Phases, each of which raises on failure (nothing is caught):
               h=1 through halo_packed_loss against the unpartitioned model
               (loss, gradients); halo bytes against the all-reduce path's;
               device ms of a halo step against the unpartitioned step.
+ 14. high    CCN-2D at K > 8, where no kernel runs: the reference recipe
+     degree  scripts/exp_ccn_col.sh --k 2 (K = 16, L = 2, h = 12, batch
+              64) through main_generate_ccn for 2 epochs of 4 steps with
+              --chunks 1 and --chunks 4 (vertex chunks, C3) on the card
+              and on the CPU, the histories held to each other; then
+              CCN2D(L=2, h=2, scan_promotion=True) (the scan over
+              neighbour slots, C2) against CCN2D() on 16 complete graphs
+              of 64 nodes (K = 64, V = 1,024; the crossover ladder's
+              graphs): step-0 output and gradients, each path's replayed
+              steps against its eager steps, ms a step and peak device
+              memory, the scan's peak below the materialized path's;
+              K1-K5 launch 0 times.
 
 Phases 4 and 6-10 train through fit and phase 11 through fit_sharded,
 whose epochs replay CUDA graphs: a kernel wrapper's launch count moves
@@ -2892,6 +2904,191 @@ def phase_halo(dev, card: str) -> dict[str, int]:
     return {k: c.launches for k, c in counters.items()}
 
 
+# phase 14: scripts/exp_ccn_col.sh --k 2 at its widths, 4 steps an epoch
+COL_ARGV = ["--k", "2", "--L", "2", "--h", "12", "--bs", "64", "--Nmax", "20",
+            "--n", "320", "--epochs", "2"]
+COL_CHUNKS = 4
+CHUNK_RTOL = 1e-5  # --chunks 4 vs --chunks 1 on the card: every metric
+XO_NODES, XO_GRAPHS = 64, 16  # the crossover graphs: K = 64, V = 1,024
+XO_STEPS = 3  # optimizer steps in one replayed graph
+XO_RTOL = 1e-4  # scan vs materialized: forward and gradients x max |value|
+
+
+def _ccn2d_shapes() -> tuple[set, object]:
+    """(the (V, K) of every CCN2D forward while the hook is on, the hook)."""
+    from hgnn2_torch.nn import ccn
+
+    shapes: set = set()
+
+    def seen(module, args):
+        if isinstance(module, ccn.CCN2D):
+            shapes.add(tuple(args[0].nbr.shape))
+
+    return shapes, torch.nn.modules.module.register_module_forward_pre_hook(
+        seen)
+
+
+def _xo_path(name: str, model, cb, dev, card: str) -> dict:
+    """One path of phase 14 (b) on the crossover batch: the step-0 output
+    and gradients (eager), then XO_STEPS optimizer steps in one replayed
+    graph (make_multi_train_step) against as many eager steps of a twin
+    (phase 10's rules); device ms a replayed step; the peak device memory
+    of the eager step and the graph's warm-ups, capture and replay."""
+    from hgnn2_torch.training import optim, train
+    from hgnn2_torch.training.config import OptimConfig
+
+    cfg = OptimConfig(optim="adamax", lr=1e-3)
+    twin = copy.deepcopy(model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model.zero_grad(set_to_none=True)
+    out = model(cb)
+    train._loss_and_metrics(out, cb.y, train._graph_mask(cb), "regression",
+                            0.0, 1.0)[0].backward()
+    # drop the step's autograd graph and gradients: an AccumulateGrad node
+    # of the default stream kept alive breaks the graph's capture
+    out = out.detach()
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    opt, sched = optim.build_optimizer(cfg, 100, model.parameters())
+    multi = train.make_multi_train_step(model, opt, sched, "regression", 0.0,
+                                        1.0, XO_STEPS)
+    with _Runs() as runs:
+        mets = multi(cb)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    replayed = _state(model)
+
+    topt, tsched = optim.build_optimizer(cfg, 100, twin.parameters())
+    slack = _Slack(twin, tsched)
+    step = slack.step_fn(lambda b: train.train_step(twin, topt, tsched, b,
+                                                    "regression", 0.0, 1.0))
+    for _ in range(XO_STEPS):
+        eager = step(cb)
+    ok, apart = _apart(replayed, _state(twin), slack, ATOMIC_TOL)
+    loss_err = abs(float(mets["loss"]) - float(eager["loss"])) / abs(
+        float(eager["loss"]))
+    ms = _spun_ms(lambda: multi(cb)) / XO_STEPS
+    print(f"  {name}: {XO_STEPS} steps in one replayed graph ({runs.replays} "
+          f"replay) vs {XO_STEPS} eager steps: last loss {float(mets['loss']):.6e}"
+          f" vs {float(eager['loss']):.6e}, rel err {loss_err:.3e} (tolerance "
+          f"{TRAIN_LOSS_RTOL}); {apart}; {ms:.3f} ms a step device (replayed) "
+          f"on {card}; peak device memory {peak:,} B ({peak - base:,} B above "
+          f"the {base:,} B allocated before the path)")
+    if not ok or loss_err > TRAIN_LOSS_RTOL or runs.replays != 1:
+        raise AssertionError(f"{name}: replayed and eager steps disagree")
+    del multi, twin, opt, topt
+    return {"out": out, "grads": grads, "ms": ms, "peak": peak}
+
+
+def phase_high_degree(dev, card: str) -> dict[str, int]:
+    """High-degree CCN-2D, where K > MAX_K and no kernel runs. (a) The
+    reference recipe scripts/exp_ccn_col.sh --k 2 (K = 16, L = 2, h = 12,
+    batch 64, Nmax 20, d = 5) through main_generate_ccn on 320 graphs (4
+    steps an epoch, 2 epochs) with --chunks 1 and --chunks 4 on the card
+    and on the CPU: the two card runs' histories within CHUNK_RTOL, each
+    within TRAIN_LOSS_RTOL of its CPU run; K and V of the batches, epoch
+    2's host ms a step, the peak device memory. (b) CCN2D(L=2, h=2,
+    scan_promotion=True) against CCN2D() on the crossover graphs (16
+    complete graphs of 64 nodes, hgnn2_torch/scripts/ccn_crossover.py),
+    the same seeded weights: the step-0 output and gradients within
+    XO_RTOL x max |value|, each path's replayed steps against its eager
+    steps, ms a step and peak memory, the scan's peak below the
+    materialized path's. Returns each kernel's launches (none may run)."""
+    from hgnn2_torch.cli import main_generate_ccn
+    from hgnn2_torch.nn import ccn
+    from hgnn2_torch.scripts import ccn_crossover
+
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    t_phase = time.perf_counter()
+    hist = {}
+    for chunks in (1, COL_CHUNKS):
+        for where in ("card", "cpu"):
+            argv = COL_ARGV + ["--chunks", str(chunks), "--device",
+                               str(dev) if where == "card" else "cpu",
+                               "--log_path", os.path.join(
+                                   OUT_DIR, f"col_chunks{chunks}_{where}")]
+            shapes, hook = _ccn2d_shapes()
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            try:
+                model, hist[chunks, where] = main_generate_ccn.main(argv)
+            finally:
+                hook.remove()
+            secs = time.perf_counter() - t0
+            if model.vertex_chunks != chunks or model.kernel:
+                raise AssertionError(f"--chunks {chunks}: built {model}")
+            if where == "cpu":
+                print(f"  --chunks {chunks} on the CPU: {secs:.1f} s")
+                continue
+            steps = -(-int(0.8 * 320) // 64)
+            print(f"  exp_ccn_col.sh --k 2 --chunks {chunks} on {card}: "
+                  f"CCN2D L=2 h=12, batches (V, K) {sorted(shapes)}, "
+                  f"{secs:.1f} s host clock for 2 epochs x {steps} steps; "
+                  f"epoch 2 {hist[chunks, where][-1]['epoch_time_s'] / steps * 1e3:.3f}"
+                  f" ms a step host clock (replayed, evaluation included); "
+                  f"peak device memory {torch.cuda.max_memory_allocated():,} B")
+            if max(k for _, k in shapes) != 16:
+                raise AssertionError(f"the recipe's K is not 16: {shapes}")
+            del model
+    card_err = _history_err(hist[COL_CHUNKS, "card"], hist[1, "card"])
+    cpu_err = [_history_err(hist[c, "card"], hist[c, "cpu"])
+               for c in (1, COL_CHUNKS)]
+    print(f"  --chunks {COL_CHUNKS} vs --chunks 1 on {card}: histories max rel "
+          f"err {card_err:.3e} (tolerance {CHUNK_RTOL}); card vs CPU "
+          f"{cpu_err[0]:.3e} and {cpu_err[1]:.3e} (tolerance "
+          f"{TRAIN_LOSS_RTOL}); final {hist[COL_CHUNKS, 'card'][-1]}")
+    if card_err > CHUNK_RTOL or max(cpu_err) > TRAIN_LOSS_RTOL:
+        raise AssertionError("the exp_ccn_col.sh runs disagree")
+    t_a = time.perf_counter() - t_phase
+
+    recs = ccn_crossover.complete_graphs(XO_NODES, XO_GRAPHS)
+    V = XO_NODES * XO_GRAPHS
+    cb = ccn.make_ccn_batch(recs, vertex_capacity=V, device=dev)
+    K = int(cb.nbr.shape[1])
+    print(f"  crossover graphs: {XO_GRAPHS} complete graphs of {XO_NODES} "
+          f"nodes, V = {V}, K = {K}; CCN2D L=2 h=2; the materialized T of "
+          f"layer 1 alone {V * K ** 3 * 3 * 4:,} B")
+    base = ccn.CCN2D(n_features=3, hidden=2, n_layers=2,
+                     generator=torch.Generator().manual_seed(0))
+    paths = {}
+    for name, scan in (("materialized", False), ("scan", True)):
+        model = ccn.CCN2D(n_features=3, hidden=2, n_layers=2,
+                          scan_promotion=scan)
+        model.load_state_dict(base.state_dict())
+        paths[name] = _xo_path(f"K={K} {name}", model.to(dev), cb, dev, card)
+        del model
+    mat, scan = paths["materialized"], paths["scan"]
+    out_err = _rel_err(scan["out"], mat["out"])
+    grad_err = max(_rel_err(g, mat["grads"][k])
+                   for k, g in scan["grads"].items())
+    print(f"  K={K} scan vs materialized: step-0 output max err / max |value| "
+          f"{out_err:.3e}, gradients {grad_err:.3e} (tolerance {XO_RTOL}); "
+          f"ms a step {scan['ms']:.3f} vs {mat['ms']:.3f}; peak "
+          f"{scan['peak']:,} vs {mat['peak']:,} B "
+          f"({scan['peak'] / mat['peak']:.3f}x)")
+    if out_err > XO_RTOL or grad_err > XO_RTOL:
+        raise AssertionError("the scan path disagrees with the materialized "
+                             "path")
+    if scan["peak"] >= mat["peak"]:
+        raise AssertionError("the scan path's peak memory is not below the "
+                             "materialized path's")
+    launches = {k: c.launches for k, c in counters.items()}
+    if any(launches.values()):
+        raise AssertionError(f"a kernel launched at K > 8: {launches}")
+    del cb, paths, mat, scan
+    torch.cuda.empty_cache()
+    print(f"  phase 14 took {time.perf_counter() - t_phase:.1f} s ((a) "
+          f"{t_a:.1f} s); K1-K5 launches {launches}")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -2962,11 +3159,16 @@ def main() -> None:
 
     print("phase 13: the halo exchange for one giant graph")
     halo_runs = phase_halo(dev, card)
+
+    print("phase 14: high-degree CCN-2D (C2, C3: the scan over neighbour "
+          "slots and vertex chunks)")
+    high_degree = phase_high_degree(dev, card)
     for key, row in rows.items():  # launches of the main paths' runs
         row["launches"] = (served[key] + trained[key] + packed[key]
                            + main_path[key] + lggnn[key] + packed_train[key]
                            + served_files[key] + captured[key]
-                           + sharded_runs[key] + dp_runs[key] + halo_runs[key])
+                           + sharded_runs[key] + dp_runs[key] + halo_runs[key]
+                           + high_degree[key])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "ms_in_run", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps(floor))

@@ -14,10 +14,11 @@ model, over N ranks, and --dp M --edge_shards N over an (M, N) grid of
 them, every rank on the run's device. --dp M alone is data parallelism
 over dense gnn/lggnn batches (parallel/spmd.py): M ranks of the run's
 device, each batch split over them, which in one process computes the
-single-device step of the whole batch. --chunks other than 1 (the CCN
-entry points) parses as in JAX and raises NotImplementedError naming the
-slice it comes with (C3). The export and predict entry points load their data,
-target stats and packed checkpoints through the helpers here.
+single-device step of the whole batch. --chunks N (the CCN entry
+points) runs CCN-2D's layers over N vertex slices (CCN2D.vertex_chunks);
+the other archs ignore it, as in JAX. The export and predict entry points
+load their data, target stats and packed checkpoints through the helpers
+here.
 """
 
 from __future__ import annotations
@@ -129,7 +130,8 @@ def restore_packed_checkpoint(ckpt_path: str, model) -> int | None:
 
 def build_model(cfg: TrainConfig, kind: str, n_features: int):
     """The model of cfg.model for inputs of n_features channels, its
-    weights drawn from cfg.seed."""
+    weights drawn from cfg.seed. vertex_chunks reaches CCN2D only, as in
+    the JAX package."""
     m = cfg.model
     dim_output = 2 if kind == "classification" else m.dim_output
     gen = torch.Generator().manual_seed(cfg.seed)
@@ -144,16 +146,14 @@ def build_model(cfg: TrainConfig, kind: str, n_features: int):
             in_features=n_features, n_features=m.n_features,
             n_layers=m.n_layers, dim_output=dim_output, J=m.J,
             order=m.order, compat=compat, generator=gen)
-    if m.vertex_chunks != 1:
-        raise NotImplementedError("vertex_chunks (--chunks) other than 1 "
-                                  "comes with slice C3")
     kw = dict(n_features=n_features, hidden=m.n_features,
               n_layers=m.n_layers, dim_output=dim_output,
               kernel=bool(m.ccn_kernel), generator=gen)
     if m.arch == "ccn1d":
         return ccn_mod.CCN1D(**kw)
     if m.arch == "ccn2d":
-        return ccn_mod.CCN2D(compat_contractions=m.compat_contractions, **kw)
+        return ccn_mod.CCN2D(compat_contractions=m.compat_contractions,
+                             vertex_chunks=m.vertex_chunks, **kw)
     raise NotImplementedError(f"arch {m.arch!r} comes with a later slice")
 
 

@@ -16,7 +16,7 @@ def main(argv=None):
     p.add_argument("--k", type=int, default=1, help="CCN order (1 or 2)")
     p.add_argument("--compat_contractions", action="store_true")
     p.add_argument("--chunks", type=int, default=1,
-                   help="ccn2d vertex chunks; only 1 (slice C3 brings more)")
+                   help="ccn2d vertex chunks (other archs ignore it)")
     p.add_argument("--n_synthetic", type=int, default=1000)
     args = p.parse_args(argv)
     cfg = common.config_from_args(args, f"ccn{args.k}d", "qm9")

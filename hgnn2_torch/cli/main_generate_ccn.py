@@ -12,7 +12,7 @@ def main(argv=None):
     p = common.base_parser("CCN on synthetic collinear-points data")
     p.add_argument("--k", type=int, default=1, help="CCN order (1 or 2)")
     p.add_argument("--chunks", type=int, default=1,
-                   help="ccn2d vertex chunks; only 1 (slice C3 brings more)")
+                   help="ccn2d vertex chunks (other archs ignore it)")
     p.add_argument("--n", dest="n_synthetic", type=int, default=1000)
     p.add_argument("--Nmax", type=int, default=20)
     p.add_argument("--d", dest="dim", type=int, default=5)

@@ -8,8 +8,10 @@ table chi_idx (V, K, K). Each layer is promotion + contraction, then
 Linear, ReLU and the row mask. With ``kernel=True`` the promotion +
 contraction is one fused CUDA kernel forward and one backward
 (ops/ccn_fused.promote_contract_*); otherwise it is the plain PyTorch
-version, whose promotion backward is the gather-form adjoint. The
-forward is the same in train and eval mode (no BN, no dropout).
+version, whose promotion backward is the gather-form adjoint; CCN2D
+also has the JAX package's two memory-bounded strategies for high K
+(scan_promotion, vertex_chunks). The forward is the same in train and
+eval mode (no BN, no dropout).
 """
 
 from __future__ import annotations
@@ -211,10 +213,13 @@ class _CCN(nn.Module):
         f = cb.x.reshape(cb.x.shape[0], *(1,) * self.order, -1) * mask
         layer_sums = [self._readout(f, cb)]
         for i in range(self.n_layers):
-            dense = getattr(self, f"w{i + 1}")
-            f = torch.relu(dense(self._contract(cb, f))) * mask
+            f = self._layer(getattr(self, f"w{i + 1}"), cb, f, mask)
             layer_sums.append(self._readout(f, cb))
         return self.fc(torch.cat(layer_sums, dim=-1))
+
+    def _layer(self, dense: nn.Linear, cb: CCNBatch, f: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+        return torch.relu(dense(self._contract(cb, f))) * mask
 
 
 class CCN1D(_CCN):
@@ -238,27 +243,72 @@ class CCN1D(_CCN):
 class CCN2D(_CCN):
     """Second-order CCN. Per layer: 2D promotion chi F chi^T, the 18 fused
     contractions, shared Linear + ReLU. compat_contractions reproduces the
-    original implementation's duplicated contraction channels."""
+    original implementation's duplicated contraction channels.
+
+    Four strategies for the promotion's memory, equal by test, chosen as
+    the JAX package chooses them (first that applies):
+      * kernel=True: the fused CUDA kernels (K <= 8); T is never
+        materialized and the other two flags are ignored;
+      * scan_promotion=True: contractions.promote_contract_18_fused, a
+        loop over the neighbour slots with each slot recomputed in the
+        backward; O(V K^2 C) memory, the high-K regime;
+      * vertex_chunks > 1: _chunked_layer, the layer over that many equal
+        vertex slices in turn (caps the forward's T at a slice's; the
+        backward keeps each slice's gather indices);
+      * else the (V, K, K, K, C) promotion tensor with the gather-form
+        promotion backward.
+    """
 
     order = 2
     n_channels = 18
 
     def __init__(self, n_features: int, hidden: int = 2, n_layers: int = 2,
                  dim_output: int = 1, kernel: bool = False,
-                 compat_contractions: bool = False,
+                 compat_contractions: bool = False, vertex_chunks: int = 1,
+                 scan_promotion: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__(n_features, hidden, n_layers, dim_output, kernel,
                          generator)
         self.compat_contractions = compat_contractions
+        self.vertex_chunks = vertex_chunks
+        self.scan_promotion = scan_promotion
 
     def _mask(self, cb):
         return cb.row_mask[:, :, None] * cb.row_mask[:, None, :]
+
+    def _layer(self, dense, cb, f, mask):
+        if self.kernel or self.scan_promotion or self.vertex_chunks <= 1:
+            return super()._layer(dense, cb, f, mask)
+        return self._chunked_layer(dense, cb, f, mask)
 
     def _contract(self, cb, f):
         if self.kernel:
             return ccn_fused.promote_contract_18(
                 cb.chi_idx, cb.nbr, f, cb.deg, cb.row_mask, cb.rslot,
                 compat=self.compat_contractions)
+        if self.scan_promotion:
+            return contractions.promote_contract_18_fused(
+                cb.chi_idx, cb.nbr, f, cb.deg, cb.row_mask,
+                compat=self.compat_contractions)
         return contractions.contract_18(
             contractions.promote_2d(cb.chi_idx, cb.nbr, f, rslot=cb.rslot),
             cb.deg, cb.row_mask, compat=self.compat_contractions)
+
+    def _chunked_layer(self, dense, cb, f, mask2):
+        """The layer over vertex_chunks equal vertex slices in turn, each
+        promoting from the whole f (its neighbours may lie in any slice)
+        through the plain gather (no rslot, as in the JAX package), then
+        contract_18, Linear, ReLU and the mask; the slices concatenated."""
+        v = f.shape[0]
+        n_chunks = self.vertex_chunks
+        if v % n_chunks:
+            raise ValueError(f"vertex count {v} not divisible by {n_chunks}")
+        vc = v // n_chunks
+        out = []
+        for lo in range(0, v, vc):
+            rows = slice(lo, lo + vc)
+            t = contractions.promote_2d(cb.chi_idx[rows], cb.nbr[rows], f)
+            z = contractions.contract_18(t, cb.deg[rows], cb.row_mask[rows],
+                                         compat=self.compat_contractions)
+            out.append(torch.relu(dense(z)) * mask2[rows])
+        return torch.cat(out)

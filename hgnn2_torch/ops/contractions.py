@@ -30,11 +30,18 @@ and rslot[u, j] = the slot of u in its j-th neighbour's list:
 
 promote_1d/2d(..., rslot=) use that gather as their backward
 (autograd.Functions), as the JAX package's custom VJPs do.
+
+promote_contract_18_fused is contract_18(promote_2d(...)) without T, a
+loop over the neighbour slots: the high-K path (K > 8), where the fused
+kernels refuse.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
+
+from hgnn2_torch.ops import sparse
 
 
 def _promote_1d_gather(chi_idx, nbr, f):
@@ -53,7 +60,11 @@ def _promote_2d_gather(chi_idx, nbr, f):
     ia = torch.where(valid, chi_idx, 0).long()
     base = (nbr.long()[:, :, None] * K + ia) * K  # (V, K, K) [v, k, a]
     flat = base[:, :, :, None] + ia[:, :, None, :]  # (V, K, K, K)
-    t = f.reshape(V * K * K, C)[flat]  # (V, K, K, K, C)
+    # sparse.gather: its gradient is index_add_ (the vertex chunks take it;
+    # every invalid entry reads row 0 of its neighbour, so index_put_'s
+    # sorted runs would be thousands long)
+    t = sparse.gather(f.reshape(V * K * K, C), flat.reshape(-1)).view(
+        *flat.shape, C)  # (V, K, K, K, C)
     mask = valid[:, :, :, None] & valid[:, :, None, :]
     return t * mask[..., None].to(f.dtype)
 
@@ -136,6 +147,76 @@ def promote_2d(chi_idx: torch.Tensor, nbr: torch.Tensor, f: torch.Tensor,
                           nbr, f)
 
 
+def _promote_slot(fflat, nbr_k, ia_k, va_k, k: int):
+    """Neighbour slot k of the 2D promotion, t_k[v,a,b] = T[v,k,a,b]
+    (V, K, K, C), and its reductions: rb_k[v,a] = sum_b t_k, diag_k[v,a] =
+    t_k[v,a,a] and col_k[v,a] = t_k[v,a,k]."""
+    K = ia_k.shape[1]
+    base = (nbr_k[:, None] * K + ia_k) * K  # (V, K) [v, a]
+    flat = base[:, :, None] + ia_k[:, None, :]  # (V, K, K) [v, a, b]
+    m2 = (va_k[:, :, None] & va_k[:, None, :]).to(fflat.dtype)
+    t_k = sparse.gather(fflat, flat.reshape(-1)).view(*flat.shape, -1)
+    t_k = t_k * m2[..., None]  # (V, K, K, C)
+    # copies, not views: a view would keep each slot's t_k alive until the
+    # stacks are built, V K^3 C floats in all
+    diag_k = torch.diagonal(t_k, dim1=1, dim2=2).movedim(-1, 1).clone()
+    return t_k, t_k.sum(dim=2), diag_k, t_k[:, :, k].clone()
+
+
+def promote_contract_18_fused(chi_idx: torch.Tensor, nbr: torch.Tensor,
+                              f: torch.Tensor, deg: torch.Tensor,
+                              row_mask: torch.Tensor,
+                              compat: bool = False) -> torch.Tensor:
+    """contract_18(promote_2d(chi_idx, nbr, f), deg, row_mask, compat)
+    without the (V, K, K, K, C) promotion tensor: a loop over the K
+    neighbour slots (unrolled; K is fixed per batch, so a CUDA graph
+    captures one sequence) gathers one (V, K, K, C) slice t_k a slot and
+    reduces it into the O(K^2)-per-vertex sums the 18 contractions read
+    (none needs the whole T). Live memory is O(V K^2 C), the high-K regime
+    where the materialized path runs out of room.
+
+    Each slot is checkpointed (torch.utils.checkpoint), as the scan body
+    of the JAX package is (jax.checkpoint): its gather indices and mask
+    are recomputed in the backward, not saved, so the backward keeps the
+    same bound (K slots of saved (V, K, K) indices would be V K^3 of
+    them). The body draws no random numbers, so no RNG state is stashed
+    (preserve_rng_state=False), which a CUDA-graph capture would refuse.
+    No host sync. Returns (V, K, K, 18C)."""
+    V, K = f.shape[0], f.shape[1]
+    C = f.shape[-1]
+    valid = chi_idx >= 0  # (V, K, K) [v, k, a]
+    ia = torch.where(valid, chi_idx, 0).long()
+    nbr = nbr.long()
+    fflat = f.reshape(V * K * K, C)
+    slot = _promote_slot
+    if fflat.requires_grad and torch.is_grad_enabled():
+        def slot(*args):
+            return torch_checkpoint.checkpoint(
+                _promote_slot, *args, use_reentrant=False,
+                preserve_rng_state=False)
+
+    sk = f.new_zeros(V, K, K, C)
+    sum_kkb, t_xxx = f.new_zeros(V, C), f.new_zeros(V, C)
+    c11_val = f.new_zeros(V, K, C)
+    rb_s, diag_s, col_s = [], [], []
+    for k in range(K):
+        t_k, rb_k, diag_k, col_k = slot(fflat, nbr[:, k], ia[:, k],
+                                        valid[:, k], k)
+        # T[k,k,b] summed over b, T[k,k,k]
+        sk, sum_kkb = sk + t_k, sum_kkb + rb_k[:, k]
+        t_xxx, c11_val = t_xxx + diag_k[:, k], c11_val + col_k
+        rb_s.append(rb_k)
+        diag_s.append(diag_k)
+        col_s.append(col_k)
+    return _channels_18(
+        rb=torch.stack(rb_s, dim=1),  # (V, K, K, C) [v, k, a]
+        sk=sk,
+        diag_aa=torch.stack(diag_s, dim=1),  # [v, k, a] = T[k,a,a]
+        t_kak=torch.stack(col_s, dim=2),  # [v, a, k] = T[k,a,k]
+        c11_val=c11_val, sum_kkb=sum_kkb, t_xxx=t_xxx, deg=deg,
+        row_mask=row_mask, compat=compat)
+
+
 def contract_1d(t: torch.Tensor) -> torch.Tensor:
     """CCN-1D collapse: concat(sum over k, sum over a) -> (V, K, 2C)."""
     row = t.sum(dim=1)  # (V, K, C) indexed by a
@@ -150,29 +231,41 @@ def contract_18(t: torch.Tensor, deg: torch.Tensor, row_mask: torch.Tensor,
     t: (V, K, K, K, C) promotion tensor; deg: (V,) true degrees; row_mask:
     (V, K) 1.0 where slot < deg. Channel index is block * C + c.
     """
-    K = t.shape[1]
-    n = deg.to(t.dtype)[:, None, None, None]  # (V, 1, 1, 1)
-    m = row_mask.to(t.dtype)  # (V, K)
+    t_kak = torch.einsum("vkakc->vakc", t)  # T[k,a,k] -> [a,k]
+    return _channels_18(
+        rb=t.sum(dim=3),  # (V, K, K, C): sum_b T[k,a,b]
+        sk=t.sum(dim=1),  # (V, K, K, C): sum_k T[k,a,b] -> [a,b]
+        diag_aa=torch.einsum("vkaac->vkac", t),  # T[k,a,a]
+        t_kak=t_kak,
+        c11_val=t_kak.sum(dim=2),  # (V, K, C): sum_k T[k,a,k] -> [a]
+        sum_kkb=torch.einsum("vkkbc->vkbc", t).sum(dim=(1, 2)),  # (V, C)
+        t_xxx=torch.einsum("vxxxc->vxc", t).sum(dim=1),  # (V, C)
+        deg=deg, row_mask=row_mask, compat=compat)
+
+
+def _channels_18(rb, sk, diag_aa, t_kak, c11_val, sum_kkb, t_xxx, deg,
+                 row_mask, compat: bool) -> torch.Tensor:
+    """The 18 channel blocks (or the compat layout) from the reductions of
+    T they read: rb[k,a] = sum_b T, sk[a,b] = sum_k T, diag_aa[k,a] =
+    T[k,a,a], t_kak[a,k] = T[k,a,k] (each (V, K, K, C)), c11_val[a] =
+    sum_k T[k,a,k] (V, K, C), sum_kkb = sum_{k,b} T[k,k,b] and t_xxx =
+    sum_x T[x,x,x] (V, C)."""
+    K = rb.shape[1]
+    n = deg.to(rb.dtype)[:, None, None, None]  # (V, 1, 1, 1)
+    m = row_mask.to(rb.dtype)  # (V, K)
 
     def bcast(val):  # (V, K, C) -> (V, K, K, C): out[i, y] = val[i] m[y]
         return val[:, :, None, :] * m[:, None, :, None]
 
-    eye = torch.eye(K, dtype=t.dtype, device=t.device)[None, :, :, None]
+    eye = torch.eye(K, dtype=rb.dtype, device=rb.device)[None, :, :, None]
 
     def diag_embed(val):  # (V, C) -> (V, K, K, C): delta * val * m[i]
         return eye * val[:, None, None, :] * m[:, :, None, None]
 
-    rb = t.sum(dim=3)  # (V, K, K, C): sum_b T[k,a,b]
-    sk = t.sum(dim=1)  # (V, K, K, C): sum_k T[k,a,b] -> [a,b]
     sab = rb.sum(dim=2)  # (V, K, C): sum_{a,b} -> [k]
     skb = rb.sum(dim=1)  # (V, K, C): sum_{k,b} -> [a]
     tot = sab.sum(dim=1)  # (V, C)
-    diag_aa = torch.einsum("vkaac->vkac", t)  # T[k,a,a]
     tr_ab = diag_aa.sum(dim=2)  # (V, K, C): sum_a T[k,a,a]
-    sum_kkb = torch.einsum("vkkbc->vkbc", t).sum(dim=(1, 2))  # (V, C)
-    t_kak = torch.einsum("vkakc->vakc", t)  # T[k,a,k] -> [a,k]
-    c11_val = t_kak.sum(dim=2)  # (V, K, C): sum_k T[k,a,k] -> [a]
-    t_xxx = torch.einsum("vxxxc->vxc", t).sum(dim=1)  # (V, C)
 
     c1 = n * rb
     c6 = rb

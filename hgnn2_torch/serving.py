@@ -142,7 +142,8 @@ def _model_meta(model: torch.nn.Module, kind: str) -> dict[str, Any]:
         return {"n_features": model.n_features, "n_layers": model.n_layers,
                 "hidden": model.hidden, "dim_output": model.dim_output,
                 "compat_contractions": bool(
-                    getattr(model, "compat_contractions", False))}
+                    getattr(model, "compat_contractions", False)),
+                "vertex_chunks": int(getattr(model, "vertex_chunks", 1))}
     if getattr(model, "dtype", None) is not None:
         raise ValueError("a bundle holds a float32 model; got dtype "
                          f"{model.dtype}")
@@ -490,6 +491,8 @@ def _build_model(meta: Mapping[str, Any], dev: torch.device) -> torch.nn.Module:
                       int(meta["input_spec"]["nbr"][0][1]), dev))
         if arch == "ccn2d":
             kw["compat_contractions"] = meta["compat_contractions"]
+            # bundles written before CCN2D had vertex chunks hold none
+            kw["vertex_chunks"] = meta.get("vertex_chunks", 1)
         return cls(**kw)
     kw = dict(in_features=meta["in_features"], n_features=meta["n_features"],
               n_layers=meta["n_layers"], dim_output=meta["dim_output"],

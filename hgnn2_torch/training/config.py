@@ -35,7 +35,9 @@ class ModelConfig:
     dim_output: int = 1
     compat_reference: bool = False
     compat_contractions: bool = False  # ccn2d
-    vertex_chunks: int = 1  # ccn2d: chunk vertices to bound promotion memory
+    # ccn2d: run each layer over this many equal vertex slices to bound
+    # the promotion's memory (--chunks); the other archs ignore it
+    vertex_chunks: int = 1
     # ccn1d/ccn2d: the fused promotion+contraction CUDA kernels. None =
     # auto: on for CUDA when K <= 8 (ops/ccn_fused.use_kernel).
     ccn_kernel: bool | None = None

@@ -188,16 +188,26 @@ def _assert_histories(got, want, rtol=1e-4):
                 np.testing.assert_allclose(a[k], b[k], rtol=rtol, err_msg=k)
 
 
-@pytest.mark.parametrize("arch,dp,es", [("ccn1d", 1, 2), ("ccn1d", 2, 2),
-                                        ("ccn2d", 1, 4)])
+@pytest.mark.parametrize("arch,dp,es,chunks", [
+    pytest.param("ccn1d", 1, 2, 1, id="ccn1d-1-2"),
+    pytest.param("ccn1d", 2, 2, 1, id="ccn1d-2-2"),
+    pytest.param("ccn2d", 1, 4, 1, id="ccn2d-1-4"),
+    pytest.param("ccn2d", 1, 2, 2, id="ccn2d-1-2-chunks2")])
 def test_run_experiment_sharded_ccn_matches_jax(tmp_path, monkeypatch, arch,
-                                                dp, es):
+                                                dp, es, chunks):
+    """--chunks 2 under --edge_shards 2 runs on 72 molecules, whose shards
+    hold 90, 36 and 44 vertices in the three splits: JAX applies the
+    model a shard at a time and needs each count divisible by the chunks."""
     inits = _recorded_inits(monkeypatch)
     jcfg, cfg = _cfgs(tmp_path, "run", arch, dp, es)
+    if chunks > 1:
+        for c in (jcfg, cfg):
+            c.model.vertex_chunks, c.data.n_synthetic = chunks, 72
     _, want = jcommon.run_experiment(jcfg)
     model, got = common.run_experiment(cfg, init_params=inits[0])
     assert isinstance(model, ccn.CCN1D if arch == "ccn1d" else ccn.CCN2D)
     assert not model.kernel and cfg.model.ccn_kernel is None
+    assert getattr(model, "vertex_chunks", 1) == chunks
     _assert_histories(got, want)
 
 

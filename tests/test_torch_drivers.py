@@ -4,9 +4,9 @@ JAX package on the CPU.
 
 --dp, --edge_shards (every training entry point) and --chunks (the CCN
 ones) parse as JAX's do, into the same TrainConfig; --dp and
---edge_shards other than 1 train (or refuse as JAX does), --chunks
-other than 1 raises NotImplementedError naming the slice that brings it
-(C3). debug, sweep and main_generate_ccn
+--edge_shards other than 1 train (or refuse as JAX does), and --chunks 4
+trains CCN-2D over 4 vertex slices (CCN-1D ignores it), each run's
+history held to JAX's. debug, sweep and main_generate_ccn
 run from JAX's initial weights (hgnn2_torch.convert), and their histories,
 rankings and summaries are held to JAX's within the CLI tests' rtol 2e-3
 (a bias that only shifts what BN subtracts has a rounding-level gradient,
@@ -85,17 +85,35 @@ def test_parallel_and_chunk_flags_parse_as_jax(monkeypatch, driver):
 @pytest.mark.parametrize("driver,flag,slice_", [
     ("main_gnn_qm9", "--dp", "(F)"), ("main_generate", "--edge_shards", "(F)"),
     ("main_ccn_qm9", "--chunks", "C3"), ("main_generate_ccn", "--chunks", "C3"),
-    ("main_generate_ccn", "--dp", "(F)")])
-def test_other_values_raise_naming_their_slice(tmp_path, driver, flag, slice_):
-    """Other values than 1 raise naming their slice, but for the parallel
-    flags, which raised before the parallel slice (F) was ported:
-    --edge_shards trains molecule-aligned shards (main_generate: PackedGNN
-    classifying over 2 shards; tests/test_torch_sharded.py holds the
-    trainer to JAX's), --dp trains the dense GNN data-parallel
-    (main_gnn_qm9) and refuses CCN with JAX's ValueError
-    (main_generate_ccn; tests/test_torch_dp.py holds both to JAX's)."""
-    mine, _, _ = DRIVERS[driver]
+    ("main_generate_ccn", "--dp", "(F)"),
+    ("main_generate_ccn", "--chunks", "ccn1d")])
+def test_other_values_raise_naming_their_slice(monkeypatch, tmp_path, driver,
+                                               flag, slice_):
+    """Other values than 1, which raised NotImplementedError naming their
+    slice (F, C3) before it was ported: --edge_shards trains
+    molecule-aligned shards (main_generate: PackedGNN classifying over 2
+    shards; tests/test_torch_sharded.py holds the trainer to JAX's), --dp
+    trains the dense GNN data-parallel (main_gnn_qm9) and refuses CCN with
+    JAX's ValueError (main_generate_ccn; tests/test_torch_dp.py holds both
+    to JAX's), and --chunks 4 trains CCN-2D (--k 2) over 4 vertex slices,
+    and CCN-1D (--k 1, the last case), which ignores it, as in JAX: one
+    epoch of each from JAX's initial weights, its history held to JAX's
+    run of the same command."""
+    mine, ref, _ = DRIVERS[driver]
     size = "--n" if driver.startswith("main_generate") else "--n_synthetic"
+    if flag == "--chunks":
+        _jax_inits(monkeypatch)
+        k = 1 if slice_ == "ccn1d" else 2
+        argv = ["--k", str(k), "--chunks", "4", "--epochs", "1", "--L", "2",
+                size, "12", "--bs", "4"]
+        _, want = ref.main(argv + ["--log_path", str(tmp_path / "j")])
+        model, got = mine.main(argv + ["--device", "cpu", "--log_path",
+                                       str(tmp_path / "t")])
+        assert type(model).__name__ == f"CCN{k}D"
+        assert getattr(model, "vertex_chunks", 4) == 4
+        assert len(got) == len(want) == 1
+        _close(got[0], want[0], f"{driver} --k {k} --chunks 4")
+        return
     argv = [flag, "2", "--device", "cpu", "--epochs", "1", "--L", "2",
             size, "12", "--bs", "4", "--log_path", str(tmp_path)]
     if flag == "--edge_shards":
@@ -108,12 +126,7 @@ def test_other_values_raise_naming_their_slice(tmp_path, driver, flag, slice_):
         assert model.n_layers == 2
         assert len(history) == 1 and np.isfinite(history[0]["train_loss"])
         return
-    if flag == "--dp":
-        with pytest.raises(ValueError, match="scale CCN with --edge_shards"):
-            mine.main(argv)
-        return
-    with pytest.raises(NotImplementedError, match=slice_.replace("(", r"\(")
-                       .replace(")", r"\)")):
+    with pytest.raises(ValueError, match="scale CCN with --edge_shards"):
         mine.main(argv)
 
 

@@ -109,3 +109,33 @@ def test_load_defaults_to_cuda(tmp_path):
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
             serving.load_bundle(str(tmp_path / "b"))
+
+
+def test_bundle_keeps_vertex_chunks(tmp_path, records):
+    """A CCN2D(vertex_chunks=4) bundle loads with its chunks (the JAX
+    package's export freezes the chunked program) and predicts what the
+    unchunked model of the same weights predicts; a bundle whose meta
+    names no chunks (written before CCN2D had them) loads with 1."""
+    gen = torch.Generator().manual_seed(1)
+    chunked = ccn.CCN2D(n_features=5, hidden=2, n_layers=2, vertex_chunks=4,
+                        generator=gen).eval()
+    whole = ccn.CCN2D(n_features=5, hidden=2, n_layers=2).eval()
+    whole.load_state_dict(chunked.state_dict())
+    k_max = max(r.max_degree() + 1 for r in records)
+    preds = {}
+    for name, model in (("chunked", chunked), ("whole", whole)):
+        serving.save_bundle(str(tmp_path / name), model, [(8, 256), (2, 64)],
+                            k_max=k_max, task=0, mean=2.0, std=3.0)
+        sm = serving.load_bundle(str(tmp_path / name), device="cpu")
+        assert sm.model.vertex_chunks == model.vertex_chunks
+        preds[name] = sm.predict(records)
+    np.testing.assert_allclose(preds["chunked"], preds["whole"], rtol=1e-6,
+                               atol=1e-6)
+
+    meta_path = tmp_path / "chunked" / "meta.json"
+    meta = json.loads(meta_path.read_text())
+    assert meta["vertex_chunks"] == 4
+    del meta["vertex_chunks"]
+    meta_path.write_text(json.dumps(meta))
+    assert serving.load_bundle(str(tmp_path / "chunked"),
+                               device="cpu").model.vertex_chunks == 1
