@@ -156,6 +156,20 @@ Phases, each of which raises on failure (nothing is caught):
               steps against its eager steps, ms a step and peak device
               memory, the scan's peak below the materialized path's;
               K1-K5 launch 0 times.
+ 15. ranks on several processes (F4): hgnn2_torch.scripts.dryrun_multihost
+     across   with 4 processes sharing the card through gloo, one edge
+     processes rank a process: ring (K5 across processes, ring.ProcessRing
+              over slots mapped by CUDA IPC, bit-equal to its plain version
+              on every process at phase 2's shapes and over 8 calls in a
+              row; PackedLGGNN h=8 L=3 and PackedGNN h=1 L=15 forwards over
+              1,024 molecules through it), psum_fallback (3 SGD steps of
+              PackedLGGNN h=8 L=3 through the differentiable all-reduce)
+              and halo_giant_graph (phase 13's graph and models, the
+              processes as halo ranks); ring again over 2 processes. Each
+              held to the same run in this process on the card (forwards
+              1e-5 x max |pred|, steps MH_RTOL, halo as phase 13); the
+              kernel's device ms alone, host ms a call, bound, gloo's
+              all_reduce and the one-device K5 on the same parts.
 
 Phases 4 and 6-10 train through fit and phase 11 through fit_sharded,
 whose epochs replay CUDA graphs: a kernel wrapper's launch count moves
@@ -165,8 +179,9 @@ and 11 hold the counts to the layers times the Python-level forwards;
 phases 4 and 10 print the replayed launches (replays times the kernels a
 graph holds) beside them.
 
-The last three lines are JSON: the launch floor, each kernel, and
-{"ok": true, "device": {...}}. Exits non-zero without CUDA.
+The last three lines are JSON: the launch floor, each kernel (K5 across
+processes' plain_ms and library_ms are host ms: a gloo collective each),
+and {"ok": true, "device": {...}}. Exits non-zero without CUDA.
 
 Float32 matmuls run without TF32 (runtime.setup) so that Linear layers
 on the card compute what they compute on the CPU.
@@ -2761,28 +2776,6 @@ HALO_RUNS = (  # name, class, keywords, seed
 )
 
 
-def _giant_record(n_nodes: int):
-    """bench_scaling.py's giant graph: a ring where each node links to
-    the next 3, plus n/64 random long-range edges, symmetric; 5 random
-    features a node."""
-    from hgnn2_torch import graphs
-
-    rng = np.random.default_rng(0)
-    a = np.zeros((n_nodes, n_nodes), np.float32)
-    for v in range(n_nodes):
-        for dd in range(1, 4):
-            a[v, (v + dd) % n_nodes] = 1.0
-    for _ in range(n_nodes // 64):  # sparse long-range edges
-        i, j = rng.integers(0, n_nodes, 2)
-        if i != j:
-            a[i, j] = 1.0
-    a = np.maximum(np.triu(a, 1), np.triu(a.T, 1))
-    a = a + a.T
-    return graphs.GraphRecord(
-        x=rng.standard_normal((n_nodes, 5)).astype(np.float32), adj=a,
-        y=np.array([1.0] * 13, np.float32))
-
-
 def _flat_grads(model) -> torch.Tensor:
     return torch.cat([p.grad.reshape(-1) for p in model.parameters()])
 
@@ -2824,12 +2817,13 @@ def phase_halo(dev, card: str) -> dict[str, int]:
     from hgnn2_torch.nn import packed
     from hgnn2_torch.ops import sparse
     from hgnn2_torch.parallel import halo, spmd
+    from hgnn2_torch.scripts import dryrun_multihost as dry
 
     counters = _counters()
     for c in counters.values():
         c.launches = 0
     t_phase = time.perf_counter()
-    rec = _giant_record(HALO_NODES)
+    rec = dry.giant_record(HALO_NODES)
     node_cap, edge_cap = _packed_caps([rec])
     pb = graphs.make_packed_batch([rec], node_capacity=node_cap,
                                   edge_capacity=edge_cap, task=0, device=dev)
@@ -3089,6 +3083,178 @@ def phase_high_degree(dev, card: str) -> dict[str, int]:
     return launches
 
 
+# phase 15: the edge-partitioned and halo paths with one rank a process
+PROC_ARGV = ["--device", "cuda", "--backend", "gloo", "--steps", "3",
+             "--timeout", "300"]  # the widths: dryrun_multihost's defaults
+PROC_RTOL = 1e-5  # process r's ring forwards vs the one-process control
+
+
+PROC_SEEDS = {"ring": (5, 6), "psum_fallback": (5,),  # phase 5's seeds
+              "halo_giant_graph": (13, 14)}  # phase 13's
+
+
+def _proc_weights(out: str, argv: list) -> None:
+    """The new phases' models' seeded flax-layout weights (phase 5's and
+    13's recipe and seeds) as out/{phase}_{arch}.pt, for --weights."""
+    from hgnn2_torch import convert
+    from hgnn2_torch.data import qm9
+    from hgnn2_torch.scripts import dryrun_multihost as dry
+
+    args = dry.parse_args(argv)
+    F_in = qm9.synthetic_qm9_like(1, seed=dry.PACKED_SEED)[0].x.shape[1]
+    os.makedirs(out, exist_ok=True)
+    for phase, seeds in PROC_SEEDS.items():
+        specs = getattr(args, dry.MODEL_ARGS[phase])
+        bn_axis = "edge" if phase == "halo_giant_graph" else None
+        for spec, seed in zip(specs, seeds):
+            model = dry.build_packed(phase, spec, args, F_in, bn_axis)
+            torch.save(convert.packed_variables_from_flax(
+                _flax_variables(model, seed)),
+                os.path.join(out, f"{phase}_{spec.split(':')[0]}.pt"))
+
+
+def _proc_runs(out: str, args, phase: str) -> list:
+    return [torch.load(os.path.join(out, f"{phase}_{p}.pt"),
+                       weights_only=False) for p in range(args.processes)]
+
+
+def _hold_ring(recs, ctrl, S: int, card: str) -> int:
+    """Phase ring's records against the one-process control (S ranks of
+    an EdgeMesh on the card, K5 over them): every check bit-equal (held
+    in the children), each model's train-mode and eval forwards within
+    PROC_RTOL x max |pred| and its BN stats within SERVE_RTOL x max
+    |stat|. Returns K5 across processes' launches in the model forwards."""
+    checks = recs[0]["errs"]
+    err = max(e for r in recs for e in r["errs"].values())
+    print(f"  K5 across {S} processes: {len(checks)} checks a process "
+          f"({', '.join(checks)}), each bit-equal to "
+          f"ring_psum_reference(all parts)[r] and to the plain version: max "
+          f"abs err {err:.3e} (tolerance 0)")
+    if err != 0.0:
+        raise AssertionError("K5 across processes disagrees with its plain "
+                             "version")
+    launches = 0
+    for spec, c in ctrl["models"].items():
+        stat_keys = [k for k in c["state"] if k.endswith((".mean", ".std"))]
+        for p, r in enumerate(recs):
+            m = r["models"][spec]
+            launches += m["launches"]
+            pe = max(_rel_err(m[k], c[k]) for k in ("train_out", "eval_out"))
+            se = max(_rel_err(m["state"][k], c["state"][k]) for k in stat_keys)
+            ok = pe <= PROC_RTOL and se <= SERVE_RTOL
+            print(f"  {spec} ring S={S}, process {p} vs the one-process S={S} "
+                  f"ring on {card}: forwards max err / max |pred| {pe:.3e} "
+                  f"(tolerance {PROC_RTOL}), BN stats {se:.3e} (tolerance "
+                  f"{SERVE_RTOL}); {m['launches']} launches for "
+                  f"{m['n_allreduce']} all-reduces; eval forward "
+                  f"{m['host_ms']:.3f} ms host clock (control "
+                  f"{c['host_ms']:.3f})")
+            if not ok:
+                raise AssertionError(f"{spec}: process {p}'s ring forwards "
+                                     "disagree with the one-process control")
+    return launches
+
+
+def _hold_steps_to(name: str, recs, ctrl, loss_tol: float, grad_l2: float
+                   | None, card: str) -> None:
+    """Each process's losses and step-0 gradients against the one-process
+    control's: losses within loss_tol relative; the gradients within
+    MH_RTOL x max |grad| or, given grad_l2, by relative L2."""
+    for spec, c in ctrl["models"].items():
+        for p, r in enumerate(recs):
+            m = r["models"][spec]
+            le = max(abs(a - b) / abs(b) for a, b in zip(m["losses"],
+                                                          c["losses"]))
+            got = torch.cat([m["grads"][k].reshape(-1) for k in c["grads"]])
+            want = torch.cat([g.reshape(-1) for g in c["grads"].values()])
+            if grad_l2 is None:
+                ge, gtol = _rel_err(got, want), MH_RTOL
+            else:
+                ge, gtol = float((got - want).norm() / want.norm()), grad_l2
+            comm = " ".join(f"{k} {v:g}" for k, v in m["comm"].items() if v)
+            print(f"  {name} {spec}, process {p} vs one process on {card}: "
+                  f"losses {m['losses']} vs {c['losses']}, max rel err "
+                  f"{le:.3e} (tolerance {loss_tol}); step-0 gradients "
+                  f"{'rel L2' if grad_l2 else 'max err / max |grad|'} "
+                  f"{ge:.3e} (tolerance {gtol}); host ms a step "
+                  f"{m['host_ms']:.3f} (control {c['host_ms']:.3f}); a step "
+                  f"crosses processes in {comm}")
+            if le > loss_tol or ge > gtol:
+                raise AssertionError(f"{name} {spec}: process {p} disagrees "
+                                     "with the one-process control")
+
+
+def phase_processes(dev, card: str) -> dict:
+    """F4, one rank a process: hgnn2_torch.scripts.dryrun_multihost's
+    phases ring, psum_fallback and halo_giant_graph over RING_RANKS
+    processes sharing the card through gloo, and ring over 2, each held
+    to its one-process control on the card from the same seeded weights
+    (phase 5's and 13's recipe and seeds; dryrun_multihost.control): K5 across processes bit-equal to its
+    plain version on every process; the ring forwards within PROC_RTOL;
+    the fallback's losses and step-0 gradients within MH_RTOL; the halo
+    loss within HALO_LOSS_RTOL and its gradients' rel L2 within
+    HALO_GRAD_L2. Prints K5 across processes' device ms alone, host ms a
+    call, its bound, gloo's all_reduce and the one-device K5 on the same
+    parts. Returns K5 across processes' row (launches: the children's
+    model forwards)."""
+    from hgnn2_torch.ops import ring
+    from hgnn2_torch.scripts import dryrun_multihost as dry
+
+    t_phase = time.perf_counter()
+    row = dict(name="ring_reduce_rank (K5 across processes)", route="cuda",
+               source="hgnn2_torch/ops/csrc/ring.cu",
+               replaces="hgnn2_tpu/ops/pallas/ring.py:27", launches=0,
+               max_abs_err=0.0)
+    weights = os.path.join(OUT_DIR, "processes_weights")
+    _proc_weights(weights, PROC_ARGV)
+    for S, phases in ((RING_RANKS, list(dry.PROCESS_PHASES)), (2, ["ring"])):
+        out = os.path.join(OUT_DIR, f"processes{S}")
+        argv = PROC_ARGV + ["--processes", str(S), "--phases", *phases,
+                            "--out", out, "--weights", weights]
+        t0 = time.perf_counter()
+        dry.main(argv)  # exits non-zero if a child fails
+        print(f"  dry run {' '.join(phases)}: {time.perf_counter() - t0:.1f} "
+              f"s host clock, {S} processes on {card} through gloo")
+        args = dry.parse_args(argv)
+        for phase in phases:
+            recs, ctrl = _proc_runs(out, args, phase), dry.control(phase, args,
+                                                                    dev)
+            if phase == "ring":
+                row["launches"] += _hold_ring(recs, ctrl, S, card)
+            elif phase == "psum_fallback":
+                _hold_steps_to(phase, recs, ctrl, MH_RTOL, None, card)
+            else:
+                _hold_steps_to(phase, recs, ctrl, HALO_LOSS_RTOL, HALO_GRAD_L2,
+                               card)
+        t = _proc_runs(out, args, "ring")[0]["timing"]
+        n = t["n"]
+        parts = dry.ring_inputs(S, (n // 16, 16), 7, dev)
+        bound, by = _bound((S + 1) * n * 4, (S - 1) * n)
+        card_bound, _ = _bound(S * (S + 1) * n * 4, S * (S - 1) * n)
+        one_dev = _time_ms(lambda: ring.ring_psum(parts))
+        print(f"  K5 across {S} processes, process 0 at ({n // 16}, 16): "
+              f"kernel alone {t['kernel_ms']:.4f} ms device (CUDA events; "
+              f"{t['kernel_ms_in_run']:.4f} ms a launch in a run of 100), a "
+              f"whole call (copy, sync, barrier, launch) {t['call_host_ms']:.4f}"
+              f" ms host clock; bound {bound:.5f} ms ({by}: (S+1)*n*4 = "
+              f"{(S + 1) * n * 4} bytes a process), {card_bound:.5f} ms for "
+              f"the card's S(S+1)*n*4 when the {S} processes share it; plain "
+              f"version (gloo all_gather, ring_psum_reference) "
+              f"{t['plain_host_ms']:.4f} ms host; library: gloo "
+              f"dist.all_reduce of the CUDA tensor {t['library_host_ms']:.4f} "
+              f"ms host; the one-device K5 (ring_psum) on the same {S} parts "
+              f"{one_dev:.4f} ms device")
+        if S == RING_RANKS:
+            row.update(ms=t["kernel_ms"], ms_in_run=t["kernel_ms_in_run"],
+                       plain_ms=t["plain_host_ms"], bound_ms=bound,
+                       bound_by=by, library_ms=t["library_host_ms"])
+    if not row["launches"]:
+        raise AssertionError("K5 across processes launched no time")
+    torch.cuda.empty_cache()
+    print(f"  phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return row
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -3163,12 +3329,17 @@ def main() -> None:
     print("phase 14: high-degree CCN-2D (C2, C3: the scan over neighbour "
           "slots and vertex chunks)")
     high_degree = phase_high_degree(dev, card)
+
+    print("phase 15: ranks on several processes (F4): the edge-partitioned "
+          "and halo paths, one rank a process, K5 across them")
+    across = phase_processes(dev, card)
     for key, row in rows.items():  # launches of the main paths' runs
         row["launches"] = (served[key] + trained[key] + packed[key]
                            + main_path[key] + lggnn[key] + packed_train[key]
                            + served_files[key] + captured[key]
                            + sharded_runs[key] + dp_runs[key] + halo_runs[key]
                            + high_degree[key])
+    rows["K5 across processes"] = across
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "ms_in_run", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps(floor))

@@ -5,7 +5,10 @@ Each library is compiled by ``nvcc`` for ``sm_90a`` at first use into
 ``build/hgnn2_torch/`` at the root of the checkout, under a file name that
 carries the source's hash, so an edited source is rebuilt and an unchanged
 one is reused. ``build_all`` starts one ``nvcc`` per source at once and
-waits for all of them. Nothing here runs at import time.
+waits for all of them. Nothing here runs at import time. A process started
+with HGNN2_PREBUILT=1 (the dry run's children, which share one card and
+one checkout) only loads: a library missing there raises instead of
+being built.
 """
 
 from __future__ import annotations
@@ -53,6 +56,9 @@ def build_all(names=None) -> dict[str, float]:
         out = library_path(name)
         if out.exists():
             continue
+        if os.environ.get("HGNN2_PREBUILT") == "1":
+            raise RuntimeError(f"{out} is not built, and this process only "
+                               "loads (HGNN2_PREBUILT=1): build it first")
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,

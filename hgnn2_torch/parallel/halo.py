@@ -15,13 +15,17 @@ covers the middle case, one connected graph too large to replicate:
     all-reduce, cutting the exchange from O(V F) to O(S Hmax F).
 
 The host-side partitioner is numpy and its tables equal the JAX
-package's. On the device the S ranks sit on one device, as an EdgeMesh's
-do, and run as one flattened batch: the ranks' export buffers are
-gathered into the (S, Hx, F) stack that all_gather delivers to each rank,
-and each rank's import table indexes into it, so the exchange keeps its
-per-rank structure (comm_log records the widths JAX's trace records)
+package's. In one process the S ranks sit on one device, as an
+EdgeMesh's do, and run as one flattened batch: the ranks' export buffers
+are gathered into the (S, Hx, F) stack that all_gather delivers to each
+rank, and each rank's import table indexes into it, so the exchange keeps
+its per-rank structure (comm_log records the widths JAX's trace records)
 while BN's pooling over "edge" and the partial readouts' psum are
-already whole.
+already whole. Over a grid whose "edge" axis spans processes (one rank
+a process: multihost.global_mesh(("edge",))), each process runs its own
+rank's rows of the global tables: its export buffer goes out through
+spmd.all_gather (lax.all_gather, differentiable), and BN's pooling and
+the partial readouts' sum through spmd.psum.
 """
 
 from __future__ import annotations
@@ -185,15 +189,30 @@ def _rank_offsets(table: torch.Tensor, step: int) -> torch.Tensor:
     return (table + rank * step).reshape(-1)
 
 
+def _local_rows(mesh: spmd.RankGrid, t):
+    """A tensor's (or a dict of tensors') rows of this process's ranks
+    along "edge": all of them in one process."""
+    if "edge" not in mesh.groups:
+        return t
+    lo = mesh.axis_index("edge")
+    hi = lo + mesh.local["edge"]
+    if isinstance(t, dict):
+        return {k: v[lo:hi] for k, v in t.items()}
+    return t[lo:hi]
+
+
 def _extend(x: torch.Tensor, export_flat: torch.Tensor,
-            import_flat: torch.Tensor, n_local: int) -> torch.Tensor:
-    """[x_local | imported halo rows] of every rank, flattened: x is the
-    ranks' (S * n_local, F) rows laid end to end; the ranks' export
-    buffers (export_flat, into x) make the (S * Hx, F) stack that
-    all_gather delivers to each rank, and import_flat (S, Hi) picks each
-    rank's halo from it. Returns (S * (n_local + Hi), F)."""
+            import_flat: torch.Tensor, n_local: int,
+            axis: str = "edge") -> torch.Tensor:
+    """[x_local | imported halo rows] of this process's S ranks,
+    flattened: x is the ranks' (S * n_local, F) rows laid end to end; the
+    ranks' export buffers (export_flat, into x), gathered over the
+    processes along ``axis`` where it spans them (spmd.all_gather), make
+    the (S_all * Hx, F) stack that all_gather delivers to each rank, and
+    import_flat (S, Hi) picks each rank's halo from it. Returns
+    (S * (n_local + Hi), F)."""
     S, hi = import_flat.shape
-    gathered = sparse.gather(x, export_flat)
+    gathered = spmd.all_gather(sparse.gather(x, export_flat), axis)
     halo = sparse.gather(gathered, import_flat.reshape(-1))
     F = x.shape[-1]
     return torch.cat([x.reshape(S, n_local, F), halo.reshape(S, hi, F)],
@@ -203,19 +222,22 @@ def _extend(x: torch.Tensor, export_flat: torch.Tensor,
 def halo_partitioned_spmm(mesh: spmd.RankGrid, part: HaloPartition):
     """Returns f(x_stacked (S, Vl, F)) -> the same shape: the full-graph
     SpMM with only halo rows exchanged, the S ranks being the grid's
-    "edge" axis."""
+    "edge" axis. Over processes x_stacked and the result are this
+    process's ranks' rows (the part's tables stay global)."""
     _check_ranks(mesh, part.n_shards)
     vl = part.nodes_per_shard
-    S, hi = part.import_flat.shape
-    export_flat = _rank_offsets(part.export_idx, vl)
-    dst = _rank_offsets(part.dst_local, vl + hi)
-    src = _rank_offsets(part.src_local, vl)
-    w = part.w.reshape(-1)
+    import_flat = _local_rows(mesh, part.import_flat)
+    S, hi = import_flat.shape
+    export_flat = _rank_offsets(_local_rows(mesh, part.export_idx), vl)
+    dst = _rank_offsets(_local_rows(mesh, part.dst_local), vl + hi)
+    src = _rank_offsets(_local_rows(mesh, part.src_local), vl)
+    w = _local_rows(mesh, part.w).reshape(-1)
 
     def apply(x_stacked):
         F = x_stacked.shape[-1]
         x = x_stacked.reshape(S * vl, F)
-        xx = _extend(x, export_flat, part.import_flat, vl)
+        with mesh:
+            xx = _extend(x, export_flat, import_flat, vl)
         out = sparse.segment_sum(w[:, None] * sparse.gather(xx, dst), src,
                                  S * vl)
         return out.reshape(S, vl, F)
@@ -359,11 +381,14 @@ class HaloLocalOps:
     """The SparsePackedOps interface (graph_op, lg_graph_op, pm, pd,
     pm_t, pd_t, nb_degrees) over the S halo ranks of a bundle's stacked
     arrays ``t``, run as one flattened batch (ranks laid end to end,
-    rank-major). Aggregation outputs are rank-local by edge ownership;
-    remote reads go through the two halo exchanges (_extend: the gathered
-    export buffers, O(S H F), in place of the all-reduce path's O(V F) a
-    apply). comm_log, when given, records the feature width of every
-    exchange, for exact volume accounting (halo_comm_bytes).
+    rank-major): all ranks in one process, or this process's rows of them
+    when ``axis`` spans processes (build and call it inside ``with
+    grid:``, as halo_packed_loss does). Aggregation outputs are rank-local
+    by edge ownership; remote reads go through the two halo exchanges
+    (_extend: the gathered export buffers, O(S H F), in place of the
+    all-reduce path's O(V F) a apply). comm_log, when given, records the
+    feature width of every exchange, for exact volume accounting
+    (halo_comm_bytes).
 
     The exchanges are memoised by identity: pm and pd (and pm_t and pd_t)
     read the same input a layer, and one exchange serves both, so
@@ -413,7 +438,8 @@ class HaloLocalOps:
 
         def compute():
             self._log("node_halo", x.shape[-1])
-            return _extend(x, self._nexp, self.t["nimport_flat"], self.vl)
+            return _extend(x, self._nexp, self.t["nimport_flat"], self.vl,
+                           self.axis)
 
         return self._cached("node", x, compute)
 
@@ -422,7 +448,8 @@ class HaloLocalOps:
 
         def compute():
             self._log("edge_halo", xl.shape[-1])
-            return _extend(xl, self._eexp, self.t["eimport_flat"], self.el)
+            return _extend(xl, self._eexp, self.t["eimport_flat"], self.el,
+                           self.axis)
 
         return self._cached("edge", xl, compute)
 
@@ -482,24 +509,30 @@ def halo_packed_loss(model, mesh: spmd.RankGrid, bundle: HaloLGBundle,
     differentiable with respect to the model's parameters, the forward in
     train mode (updating the BN running statistics). The model takes the
     HaloLocalOps bundle through ops= (PackedGNN uses its graph_op only).
-    Each rank's readout is a partial sum over its node range; the ranks
-    run as one flattened batch, so the readout (JAX's psum of the
-    partials) and BN's statistics are already whole."""
+    Each rank's readout is a partial sum over its node range, summed over
+    the ranks by spmd.psum (JAX's psum of the partials): in one process
+    the ranks run as one flattened batch, so the readout and BN's
+    statistics are already whole; over processes each runs its own rows
+    of the bundle (all of it given, global, to every process), and the
+    psums cross them. The step then backpropagates through
+    spmd.backward(loss, mesh, params)."""
     _check_ranks(mesh, bundle.n_shards)
 
     def loss_fn(bundle_arrays: dict | None = None) -> torch.Tensor:
-        t = bundle_arrays if bundle_arrays is not None else bundle.arrays
+        t = _local_rows(mesh, bundle_arrays if bundle_arrays is not None
+                        else bundle.arrays)
         S, vl = t["x"].shape[:2]
-        ops = HaloLocalOps(t, J=model.J, comm_log=comm_log)
-        pb = PackedGraphBatch(
-            x=t["x"].reshape(S * vl, -1), node_gid=t["node_gid"].reshape(-1),
-            node_mask=t["node_mask"].reshape(-1), src=ops.src, dst=ops.dst,
-            w=ops.w, rev=ops.rev, edge_gid=torch.zeros_like(ops.src),
-            edge_mask=ops.edge_mask, y=bundle.y, gmask=bundle.gmask,
-            n_graphs=bundle.n_graphs)
         model.train()
         with mesh:
-            out = model(pb, ops=ops)
+            ops = HaloLocalOps(t, J=model.J, comm_log=comm_log)
+            pb = PackedGraphBatch(
+                x=t["x"].reshape(S * vl, -1),
+                node_gid=t["node_gid"].reshape(-1),
+                node_mask=t["node_mask"].reshape(-1), src=ops.src,
+                dst=ops.dst, w=ops.w, rev=ops.rev,
+                edge_gid=torch.zeros_like(ops.src), edge_mask=ops.edge_mask,
+                y=bundle.y, gmask=bundle.gmask, n_graphs=bundle.n_graphs)
+            out = spmd.psum(model(pb, ops=ops), "edge")
         per = spmd.per_graph_loss(out, bundle.y, kind, mean, std)
         return (per * bundle.gmask).sum() / bundle.gmask.sum().clamp_min(1.0)
 

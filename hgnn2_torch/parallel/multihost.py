@@ -8,7 +8,12 @@ shards over an "edge" axis that spans them, or the hybrid (data =
 processes, edge = each process's ranks). Every cross-rank sum passes
 through spmd.psum, which all-reduces over the process group of each
 axis that crosses processes; a step sums the replicated parameters'
-gradients over the processes once (spmd.backward).
+gradients over the processes once (spmd.backward). An edge axis of one
+rank a process (edge_mesh) carries the edge-partitioned packed ops (F4):
+each process computes its own edge block, and the all-reduces cross the
+processes, through K5 across them (ring.ProcessRing, CUDA IPC) or the
+differentiable all-reduce; halo ranks run one a process over
+global_mesh(("edge",)).
 
 The process group is torch.distributed's, started by setup_distributed
 with an explicit backend: "nccl" for one card per process, "gloo" for the
@@ -137,6 +142,19 @@ def global_mesh(axis_names=("data",), shape=None, local_ranks: int = 1,
                          f"rows nor one row of {n}")
     return spmd.RankGrid(m, n, resolve_device(device), groups=groups,
                          local=local, n_processes=n_proc)
+
+
+def edge_mesh(device=None) -> spmd.EdgeMesh:
+    """The edge axis of every process, one rank a process, this process's
+    on its ``device`` (default cuda): F4's EdgeMesh over processes, whose
+    edge-partitioned ops compute this process's edge block and reduce it
+    over the processes (K5 across them, ring.ProcessRing, or the
+    differentiable all-reduce). One process: an EdgeMesh of one rank.
+    Every process calls it with the same arguments (global_mesh's rule)."""
+    grid = global_mesh(("edge",), device=device)
+    if not grid.groups:
+        return spmd.EdgeMesh([grid.device])
+    return spmd.EdgeMesh([grid.device], grid)
 
 
 def _tensors(tree) -> list[torch.Tensor]:

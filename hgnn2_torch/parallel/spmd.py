@@ -21,21 +21,25 @@ Data parallelism over dense batches (make_mesh, shard_batch, replicate,
 ShardedLoader, make_dp_train_step; cli --dp M): JAX shards the padded
 batch over the "data" axis and XLA computes the step of the global batch.
 
-The JAX package drives every device of a shard_map from one process, and
-so does the port: an EdgeMesh is a list of rank devices in one process
-and a RankGrid a (data, edge) grid of ranks. Within a process all ranks
-sit on one device (every rank ``cuda:0`` on a card, ``cpu`` on the host).
-There the edge-partitioned all-reduce is kernel K5 over the ranks'
-buffers (ops/ring.py) or a plain sum, the ranks of a molecule-aligned
+The JAX package drives every device of a shard_map from one process; the
+port does so within a process: an EdgeMesh is a list of rank devices in
+one process and a RankGrid a (data, edge) grid of ranks. Within a process
+all ranks sit on one device (every rank ``cuda:0`` on a card, ``cpu`` on
+the host). There the edge-partitioned all-reduce is kernel K5 over the
+ranks' buffers (ops/ring.py) or a plain sum, the ranks of a molecule-aligned
 batch run as one batch (flatten_shards lays them end to end, rank-major,
 with each rank's indices moved past the ranks before it, so the model
 runs once over all of them and every cross-rank sum is already whole),
 and a dense batch sharded over "data" is the same batch, so the DP step
 is the unsharded step. A RankGrid may also span processes
 (parallel/multihost.py): then psum all-reduces over the process group of
-each axis that crosses them, and a step sums the replicated parameters'
-gradients over the processes in one place (backward). Ranks on several
-devices of one process come with F4.
+each axis that crosses them, all_gather gathers over it, and a step sums
+the replicated parameters' gradients over the processes in one place
+(backward). Ranks on several devices are PyTorch's one rank a process
+(F4): an EdgeMesh over processes (multihost.edge_mesh) holds one rank in
+each, and the edge-partitioned ops compute this process's edge block and
+reduce it over the processes, through K5 across them (ring.ProcessRing)
+or the differentiable all-reduce. Several devices in one process raise.
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ import torch.nn.functional as F
 from hgnn2_torch import resolve_device
 from hgnn2_torch.graphs import PackedGraphBatch
 from hgnn2_torch.ops import sparse
-from hgnn2_torch.ops.ring import ring_psum
+from hgnn2_torch.ops.ring import ProcessRing, gather_parts, ring_psum
 
 
 def _indexed(dev: torch.device) -> torch.device:
@@ -63,26 +67,60 @@ def _indexed(dev: torch.device) -> torch.device:
 
 
 class EdgeMesh:
-    """S rank devices along one 'edge' axis (counterpart of
-    Mesh(devices, ("edge",)))."""
+    """S ranks along one 'edge' axis (counterpart of Mesh(devices,
+    ("edge",))).
 
-    def __init__(self, devices: Sequence[str | torch.device]):
+    EdgeMesh(devices): the S ranks in this process, every one on the same
+    device. EdgeMesh([device], grid): one rank of S in each process of
+    ``grid`` (a RankGrid of 1 x S ranks over processes, one a process:
+    multihost.edge_mesh), this process's on ``device``; ``rank`` is its
+    index, and ``ring`` the process ring (K5 across processes) over the
+    grid's edge group."""
+
+    def __init__(self, devices: Sequence[str | torch.device],
+                 grid: "RankGrid | None" = None):
         self.devices = [_indexed(torch.device(d)) for d in devices]
         if not self.devices:
             raise ValueError("an EdgeMesh needs at least one rank")
         if len(set(self.devices)) != 1:
             raise NotImplementedError(
                 f"ranks on several devices ({sorted(map(str, set(self.devices)))}) "
-                "come with slice F (peer-mapped rings, NCCL); every rank of "
-                "an EdgeMesh sits on one device so far")
-
-    @property
-    def size(self) -> int:
-        return len(self.devices)
+                "of one process: slice F4 runs them one rank a process "
+                "(multihost.edge_mesh); every rank of an EdgeMesh in one "
+                "process sits on one device")
+        self.grid, self.rank, self.ring = grid, 0, None
+        self.size = len(self.devices)
+        if grid is not None:
+            if (len(self.devices) != 1 or grid.shape["data"] != 1
+                    or grid.local["edge"] != 1 or "edge" not in grid.groups):
+                raise ValueError("an EdgeMesh over processes holds one rank "
+                                 "a process of a 1 x S grid whose edge axis "
+                                 "spans them")
+            self.size, self.rank = grid.shape["edge"], grid.axis_index("edge")
+            self.ring = ProcessRing(grid.groups["edge"])
 
     @property
     def device(self) -> torch.device:
         return self.devices[0]
+
+    def blocks(self, num_edges: int) -> list[tuple[int, int]]:
+        """The edge blocks this process computes: every rank's in one
+        process, its own rank's over processes."""
+        bounds = edge_bounds(num_edges, self.size)
+        return bounds if self.grid is None else [bounds[self.rank]]
+
+    def reduce(self, parts: list[torch.Tensor],
+               use_ring: bool = False) -> torch.Tensor:
+        """The sum over the ranks of the blocks' partials (``blocks``):
+        in one process K5 over them (rank 0's replica) or a plain sum;
+        over processes K5 across them (this rank's replica) or the
+        differentiable all-reduce over the edge group."""
+        if self.grid is None:
+            return ring_psum(parts)[0] if use_ring else _plain_reduce(parts)
+        (part,) = parts
+        if use_ring:
+            return self.ring(part)
+        return _AllReduce.apply(part, self.grid, "edge")
 
 
 def edge_bounds(num_edges: int, n_ranks: int) -> list[tuple[int, int]]:
@@ -112,8 +150,8 @@ def partitioned_spmm(mesh: EdgeMesh, num_nodes: int):
     def apply(src, dst, w, x):
         _check_device(mesh, x)
         parts = [sparse.spmm(src[lo:hi], dst[lo:hi], w[lo:hi], x, num_nodes)
-                 for lo, hi in edge_bounds(src.shape[0], mesh.size)]
-        return _plain_reduce(parts)
+                 for lo, hi in mesh.blocks(src.shape[0])]
+        return mesh.reduce(parts)
 
     return apply
 
@@ -133,15 +171,17 @@ def partitioned_graph_op(mesh: EdgeMesh, num_nodes: int, J: int):
 class PartitionedPackedOps:
     """Edge-partitioned operator bundle for PackedLGGNN/PackedGNN: the
     SparsePackedOps interface with the edge set split over the ranks of
-    ``mesh``. use_ring takes K5 (ops/ring.ring_psum, no gradient) for
-    every all-reduce in place of the plain sum over ranks."""
+    ``mesh``. use_ring takes K5 (ops/ring.ring_psum, or
+    ring.ProcessRing over processes; no gradient) for every all-reduce in
+    place of the plain sum over ranks. Over processes each computes only
+    its own rank's edge block and keeps its own replica of every sum."""
 
     def __init__(self, mesh: EdgeMesh, pb: PackedGraphBatch, J: int,
                  use_ring: bool = False):
         _check_device(mesh, pb.x)
         self.mesh, self.pb, self.J, self.use_ring = mesh, pb, J, use_ring
         self.V = pb.num_node_slots
-        self.bounds = edge_bounds(pb.num_edge_slots, mesh.size)
+        self.bounds = mesh.blocks(pb.num_edge_slots)
         # every node-block all-reduce is logged, so the volume is counted
         self.psum_widths: list[int] = []
         # the degree once per bundle; the NB degree derives from it with
@@ -152,14 +192,14 @@ class PartitionedPackedOps:
 
     def _seg(self, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
         """Rank-local segment sums of each rank's edge block, then one
-        all-reduce; returns rank 0's replica (the copy JAX hands back for
-        out_specs=P() with check_rep=False)."""
+        all-reduce (EdgeMesh.reduce); in one process returns rank 0's
+        replica (the copy JAX hands back for out_specs=P() with
+        check_rep=False), over processes this rank's (the copy JAX's
+        device r goes on with)."""
         self.psum_widths.append(int(vals.shape[1]))
         parts = [sparse.segment_sum(vals[lo:hi], idx[lo:hi], self.V)
                  for lo, hi in self.bounds]
-        if self.use_ring:
-            return ring_psum(parts)[0]
-        return _plain_reduce(parts)
+        return self.mesh.reduce(parts, self.use_ring)
 
     def _spmm(self, x):
         pb = self.pb
@@ -270,9 +310,10 @@ class RankGrid:
     and keeps ``local`` = (M, N) of its ranks in this one, on its
     ``device``. Entered as a context (``with grid:``) it is the grid whose
     groups psum reduces over, as a shard_map's mesh is for lax.psum; the
-    step functions enter it. ``comm`` counts the cross-process all-reduces
-    (calls and bytes): psum's, forward and backward, and the gradient
-    sums (sum_grads)."""
+    step functions enter it. ``comm`` counts the cross-process collectives
+    (calls and bytes): psum's all-reduces, forward and backward, the
+    gradient sums (sum_grads) and all_gather's gathers (the bytes
+    gathered) and their adjoints' all-reduces."""
 
     axis_names = AXES
 
@@ -290,7 +331,8 @@ class RankGrid:
         self.local = dict(zip(AXES, local or (n_data, n_edge)))
         self.n_processes = n_processes
         self.comm = dict.fromkeys(("psum_calls", "psum_bytes", "grad_calls",
-                                   "grad_bytes"), 0)
+                                   "grad_bytes", "gather_calls",
+                                   "gather_bytes"), 0)
 
     @property
     def size(self) -> int:
@@ -316,6 +358,21 @@ class RankGrid:
         if stacked.gmask.device != self.device:
             raise ValueError(f"batch on {stacked.gmask.device}, ranks on "
                              f"{self.device}")
+
+    def axis_index(self, axis: str) -> int:
+        """The index along ``axis`` of this process's first rank."""
+        if axis not in self.groups:
+            return 0
+        return dist.get_rank(self.groups[axis]) * self.local[axis]
+
+    def all_gather(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """Every process's t along ``axis``, concatenated on dim 0 in the
+        processes' order (ring.gather_parts), on t's device; counted
+        under "gather"."""
+        out = torch.cat(gather_parts(t, self.groups[axis])).to(t.device)
+        self.comm["gather_calls"] += 1
+        self.comm["gather_bytes"] += out.numel() * out.element_size()
+        return out
 
     def all_reduce(self, t: torch.Tensor, axis: str | None,
                    kind: str = "psum") -> torch.Tensor:
@@ -367,6 +424,39 @@ class _AllReduce(torch.autograd.Function):
     def backward(ctx, g):
         return ctx.grid.all_reduce(g.clone(
             memory_format=torch.contiguous_format), ctx.axis), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    """The processes' x along one axis of a grid laid end to end
+    (lax.all_gather, tiled). Its adjoint is a reduce-scatter: each
+    process's share of the sum of every process's adjoint, here an
+    all-reduce and this process's slice (gloo has no reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, grid, axis):
+        ctx.grid, ctx.axis, ctx.n = grid, axis, x.shape[0]
+        return grid.all_gather(x.detach(), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        full = ctx.grid.all_reduce(g.clone(
+            memory_format=torch.contiguous_format), ctx.axis, "gather")
+        k = dist.get_rank(ctx.grid.groups[ctx.axis])
+        return full[k * ctx.n:(k + 1) * ctx.n], None, None
+
+
+def all_gather(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """The blocks x of every rank along the mesh axis ``axis_name`` laid
+    end to end on dim 0, in rank order (JAX's lax.all_gather(x, axis,
+    tiled=True)). In one process x already holds this process's ranks'
+    blocks, which are all of them, and comes back as it is; inside ``with
+    grid:`` for a grid whose axis spans processes, the processes' x are
+    gathered over its group (_AllGather, differentiable)."""
+    (name,) = mesh_axes(axis_name)
+    grid = _ACTIVE[-1] if _ACTIVE else None
+    if grid is not None and name in grid.groups:
+        return _AllGather.apply(x, grid, name)
+    return x
 
 
 def psum(x: torch.Tensor, axis_name, ranked: int = 0) -> torch.Tensor:
@@ -447,7 +537,8 @@ def make_mesh(n_devices: int | None = None, edge_axis: int = 1,
     edge_axis). Every rank sits on one device: ``devices`` names it (a
     device, or a sequence that repeats one device; default cuda), and
     n_devices defaults to the devices of its type (or the sequence's
-    length). Ranks on several devices come with F4."""
+    length). Ranks on several devices run one rank a process
+    (multihost.global_mesh); here they raise."""
     if devices is None or isinstance(devices, (str, torch.device)):
         dev = resolve_device(devices)
         avail = device_count(dev)
@@ -455,8 +546,9 @@ def make_mesh(n_devices: int | None = None, edge_axis: int = 1,
         devs = {_indexed(torch.device(d)) for d in devices}
         if len(devs) != 1:
             raise NotImplementedError(
-                f"ranks on several devices ({sorted(map(str, devs))}) come "
-                "with step F4 of the parallel slice")
+                f"ranks on several devices ({sorted(map(str, devs))}) of one "
+                "process: F4 runs them one rank a process "
+                "(multihost.global_mesh)")
         dev, avail = next(iter(devs)), len(devices)
     n = n_devices or avail
     if n % edge_axis != 0:
