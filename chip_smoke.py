@@ -142,8 +142,10 @@ Phases, each of which raises on failure (nothing is caught):
               ranks on the card: halo_partitioned_spmm against
               sparse.spmm; PackedLGGNN L=5 h=1 order 2 and PackedGNN L=15
               h=1 through halo_packed_loss against the unpartitioned model
-              (loss, gradients); halo bytes against the all-reduce path's;
-              device ms of a halo step against the unpartitioned step.
+              (loss, gradients; both under deterministic algorithms, so
+              index_add_'s atomics add no run-to-run noise); halo bytes
+              against the all-reduce path's; device ms of a halo step
+              against the unpartitioned step.
  14. high    CCN-2D at K > 8, where no kernel runs: the reference recipe
      degree  scripts/exp_ccn_col.sh --k 2 (K = 16, L = 2, h = 12, batch
               64) through main_generate_ccn for 2 epochs of 4 steps with
@@ -170,6 +172,24 @@ Phases, each of which raises on failure (nothing is caught):
               1e-5 x max |pred|, steps MH_RTOL, halo as phase 13); the
               kernel's device ms alone, host ms a call, bound, gloo's
               all_reduce and the one-device K5 on the same parts.
+ 16. measure- the harnesses of hgnn2_torch/scripts through their main(argv)
+     ment     at reduced sizes: profile_lggnn (GNNLineGraph and
+     harnesses PackedLGGNN L=5 h=1 over 8,192 molecules: the traced
+              epoch's kernel table shows the replayed graphs' kernels, >= 10
+              kernels, > 100 launches a step, device time 50-105 % of the
+              best epoch's host time; the dense h sweep 1, 4); phase 10's
+              replayed GNNSimple L=15 step, 3 replays under profiling.trace
+              (top 15 kernels, launches a step, the index_select,
+              index_add_, GEMM and elementwise shares); profile_ccn1d
+              (2,048 molecules, h sweep 2, 8: K1 and K2 launch on the
+              kernel path only, the paths' first-step losses from the same
+              weights within 1e-5); bench_serving --repeats 10 in a fresh
+              process, in a fresh process after a torch.profiler run (K3
+              launches in its CCN-2D bundle, counted by each child) and in
+              this one, beside phase 9's rates;
+              packed_crossover at h = 1 and 16 over 8,192 molecules, one
+              epoch (scan groups: 1 for every packed row with uniform
+              capacities, the dense rows' from the records' sizes).
 
 Phases 4 and 6-10 train through fit and phase 11 through fit_sharded,
 whose epochs replay CUDA graphs: a kernel wrapper's launch count moves
@@ -189,9 +209,11 @@ on the card compute what they compute on the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
+import io
 import json
 import os
 import re
@@ -1772,17 +1794,16 @@ def _native_builds(dev, requests) -> None:
               f"on, off, off, on), batches equal")
 
 
-def phase_serve_files(dev, card: str) -> dict[str, int]:
+def phase_serve_files(dev, card: str, rates: dict | None = None
+                      ) -> dict[str, int]:
     """Serving from QM9 files on the card: write a cache of synthetic
     QM9-shaped molecules, train each of SERVE9_MODELS for one epoch
     through its CLI (--data_path --ckpt), export it with --bs 1024
     --buckets 256, serve 2,048 requests through the bundle on the card and
     on the CPU, hold call(arrays) to predict on one chunk, and run the
     predict CLI on the card and on the CPU. Returns each kernel's
-    launches in the card's runs."""
-    import contextlib
-    import io
-
+    launches in the card's runs; ``rates`` gets each model's molecules/s
+    on the card."""
     from hgnn2_torch import native, serving
     from hgnn2_torch.cli import export, main_ccn_qm9, main_gnn_qm9, predict
     from hgnn2_torch.data import qm9
@@ -1847,6 +1868,8 @@ def phase_serve_files(dev, card: str) -> dict[str, int]:
               f"launches {got_serve} (expected {want})")
         if got_serve != want:
             raise AssertionError(f"{name}: serving launches {got_serve} != {want}")
+        if rates is not None:
+            rates[name] = N_REQUESTS / secs
         if key is not None and got_export[key] != n_layers:
             raise AssertionError(f"{name}: export's smoke call launched "
                                  f"{got_export}")
@@ -2809,11 +2832,13 @@ def phase_halo(dev, card: str) -> dict[str, int]:
     HALO_RANKS ranks on the card: halo_partitioned_spmm against
     sparse.spmm; PackedLGGNN L=5 and PackedGNN L=15 (h=1, seeded
     flax-layout weights) through halo_packed_loss against the
-    unpartitioned model on the same weights (loss, gradients); the halo
+    unpartitioned model on the same weights (loss, gradients; both under
+    deterministic algorithms, so index_add_'s atomics add no run-to-run
+    noise to the comparison); the halo
     exchange's bytes against the all-reduce path's; device ms of a halo
     step (forward and backward) against the unpartitioned step. Returns
     each kernel's launches (none run here)."""
-    from hgnn2_torch import convert, graphs
+    from hgnn2_torch import convert, graphs, runtime
     from hgnn2_torch.nn import packed
     from hgnn2_torch.ops import sparse
     from hgnn2_torch.parallel import halo, spmd
@@ -2865,9 +2890,12 @@ def phase_halo(dev, card: str) -> dict[str, int]:
             per = spmd.per_graph_loss(single(pb), pb.y, "regression", 0.0, 1.0)
             return (per * pb.gmask).sum() / pb.gmask.sum().clamp_min(1.0)
 
-        lh = float(_grad_step(model, loss_fn).detach())
-        ls = float(_grad_step(single, single_loss).detach())
-        gh, gs = _flat_grads(model), _flat_grads(single)
+        with runtime.deterministic() as refused:
+            lh = float(_grad_step(model, loss_fn).detach())
+            ls = float(_grad_step(single, single_loss).detach())
+            gh, gs = _flat_grads(model), _flat_grads(single)
+        print(f"  {name}: deterministic algorithms on; ops without a "
+              f"deterministic CUDA form: {refused or 'none'}")
         loss_err = abs(lh - ls) / abs(ls)
         grad_err = float((gh - gs).norm() / gs.norm())
         hbytes = halo.halo_comm_bytes(log, bundle, HALO_RANKS)
@@ -3255,6 +3283,294 @@ def phase_processes(dev, card: str) -> dict:
     return row
 
 
+# phase 16: the measurement harnesses of hgnn2_torch/scripts, cut in size
+HARNESS_MOLS = 8192  # profile_lggnn and packed_crossover: 4 steps an epoch
+CCN1D_PROFILE_ARGV = ["--molecules", "2048", "--sweep_h", "2", "8"]
+SERVING_ARGV = ["--repeats", "10"]
+CROSSOVER_HS = (1, 16)
+PROFILE_MIN_KERNELS = 10  # distinct device kernels among the top 15
+PROFILE_MIN_PER_STEP = 100  # kernel launches a replayed LGGNN step, above
+PROFILE_BUSY = (0.5, 1.05)  # traced device time over the best epoch's host s
+CCN_PATHS_RTOL = 1e-5  # first-step loss, kernel path vs plain path
+KERNEL_CLASSES = (  # (class, lower-case substrings of a kernel's name)
+    ("index_select", ("indexselect", "index_select")),
+    ("index_add_", ("indexfunc", "index_add")),
+    ("GEMM", ("gemm", "xmma", "cutlass", "cublas")),
+    ("elementwise", ("elementwise",)),
+    ("reduction", ("reduce",)),
+)
+
+
+def _kernel_class(name: str) -> str:
+    low = name.lower()
+    return next((c for c, keys in KERNEL_CLASSES
+                 if any(k in low for k in keys)), "other")
+
+
+def _class_shares(rows) -> str:
+    """Each kernel class's share of the device time and of the launches
+    among parse_kernel_stats' rows."""
+    kernels = [r for r in rows if r["category"] == "kernel"]
+    total_t = sum(r["total_time"] for r in kernels) or 1.0
+    total_n = sum(r["occurrences"] for r in kernels) or 1
+    shares = {}
+    for r in kernels:
+        t, n = shares.get(_kernel_class(r["op_name"]), (0.0, 0))
+        shares[_kernel_class(r["op_name"])] = (t + r["total_time"],
+                                               n + r["occurrences"])
+    return ", ".join(f"{c} {100 * t / total_t:.1f} % of the time, "
+                     f"{100 * n / total_n:.1f} % of the launches"
+                     for c, (t, n) in sorted(shares.items(),
+                                             key=lambda kv: -kv[1][0]))
+
+
+def _dense_groups(records, bs: int, lg: bool) -> int:
+    """Shape groups of DenseLoader(sort=True) batches, from the records'
+    sizes: one a distinct (node bucket, edge bucket) of the sorted chunks
+    (what tests/test_torch_packed_crossover.py holds to JAX)."""
+    from hgnn2_torch.data import batching
+    from hgnn2_torch.graphs import pad_to_bucket
+
+    order = np.argsort([r.n_nodes for r in records], kind="stable")
+    shapes = set()
+    for lo in range(0, len(order), bs):
+        chunk = [records[i] for i in order[lo:lo + bs]]
+        shapes.add((pad_to_bucket(max(r.n_nodes for r in chunk),
+                                  batching.DEFAULT_NODE_BUCKETS),
+                    pad_to_bucket(max(r.n_dir_edges for r in chunk),
+                                  batching.DEFAULT_EDGE_BUCKETS) if lg else 0))
+    return len(shapes)
+
+
+def _quiet(fn):
+    """fn() with its standard output (a harness's JSON lines) kept out of
+    this script's."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn()
+
+
+def _serving_after_profiler(argv) -> None:
+    """bench_serving.main(argv) in a process whose first act on the card
+    is a torch.profiler run with CUDA activity (phase 16's control for
+    what a profiler leaves behind in a process)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hgnn2_torch.scripts import bench_serving
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(4, device="cuda").add_(1).cpu()
+    bench_serving.main(argv)
+
+
+def phase_harnesses(dev, card: str, serve9: dict) -> dict[str, int]:
+    """The measurement harnesses of hgnn2_torch/scripts through their
+    main(argv), at reduced sizes: profile_lggnn (dense and packed at h=1
+    over HARNESS_MOLS molecules, each traced epoch's table listing the
+    replayed graphs' kernels, then the dense h sweep 1, 4); the main
+    path's replayed GNNSimple L=15 step (phase 10's), 3 replays under
+    profiling.trace: its top kernels, launches a step and kernel classes;
+    profile_ccn1d (2,048 molecules, h sweep 2, 8): K1 and K2 launch on its
+    kernel path and not on its plain path, whose first-step losses from
+    the same weights agree; bench_serving in a fresh process, in a fresh
+    process after a torch.profiler run (K3 launches in its CCN-2D bundle,
+    counted by each child) and in this one, beside phase 9's rates
+    (``serve9``); packed_crossover at h = 1 and 16 over
+    HARNESS_MOLS molecules, one epoch (one scan group for every packed
+    row with uniform capacities, the dense rows' groups from the records'
+    sizes). Returns each kernel's launches, the child's included."""
+    from unittest import mock
+
+    from hgnn2_torch import profiling
+    from hgnn2_torch.cli import common
+    from hgnn2_torch.data import qm9, stats
+    from hgnn2_torch.nn import ccn
+    from hgnn2_torch.scripts import (bench_serving, packed_crossover,
+                                     profile_ccn1d, profile_lggnn)
+    from hgnn2_torch.scripts import profile_ccn1d_util as util
+    from hgnn2_torch.training import train
+
+    t_phase = time.perf_counter()
+    out = os.path.join(OUT_DIR, "harnesses")
+    counters = _counters()
+    launches = dict.fromkeys(counters, 0)
+
+    def counted(fn):
+        got_out, got = _counted(counters, launches, lambda: _quiet(fn))
+        return got_out, got
+
+    # profile_lggnn: the traced epoch replays the step graphs
+    lg_argv = ["--molecules", str(HARNESS_MOLS), "--out", out]
+    for extra in ([], ["--packed"]):
+        summary, got = counted(lambda: profile_lggnn.main(lg_argv + extra))
+        n_kernels = sum(r["category"] == "kernel" for r in summary["top_ops"])
+        busy = (summary["device_time_total_us"] / 1e6
+                / summary["scanned_epoch_s"])
+        print(f"  profile_lggnn {summary['layout']} h=1: "
+              f"{summary['per_step_ms']:.3f} ms a step (best of 3 epochs of "
+              f"{summary['steps_per_epoch']} steps, host clock), "
+              f"{summary['n_kernels_per_step']:.1f} kernel launches a step "
+              f"in the traced epoch, {n_kernels} kernels among its top 15, "
+              f"device time {summary['device_time_total_us'] / 1e3:.3f} ms = "
+              f"{100 * busy:.1f} % of the best epoch's host time on {card}; "
+              f"top: " + "; ".join(
+                  f"{r['op_name'][:60]} {r['total_time']:.0f} us x"
+                  f"{r['occurrences']}" for r in summary["top_ops"][:5]))
+        if (n_kernels < PROFILE_MIN_KERNELS
+                or summary["n_kernels_per_step"] <= PROFILE_MIN_PER_STEP
+                or not PROFILE_BUSY[0] <= busy <= PROFILE_BUSY[1]):
+            raise AssertionError(f"profile_lggnn {summary['layout']}: the "
+                                 "trace misses the replayed graphs' kernels")
+        if any(got.values()):
+            raise AssertionError(f"profile_lggnn launched {got}")
+    sweep, _ = counted(lambda: profile_lggnn.main(
+        lg_argv + ["--sweep_h", "1", "4"]))
+    print("  profile_lggnn dense h sweep: " + ", ".join(
+        f"h={r['h']} {r['per_step_ms']:.3f} ms a step (capture epoch "
+        f"{r['compile_s']:.2f} s)" for r in sweep))
+    if [r["h"] for r in sweep] != [1, 4] or not all(
+            np.isfinite(r["loss"]) for r in sweep):
+        raise AssertionError(f"profile_lggnn sweep: {sweep}")
+
+    # the main path's replayed step, profiled
+    cfg = _main_cfg(str(dev))
+    params = _flax_variables(common.build_model(cfg, "regression", 5), 9)
+    model, opt, sched, batches, mean, std = _train_setup(
+        cfg, params, str(dev), _synthetic(N_MAIN_MOLS))
+    same = max(train.group_batches(batches), key=len)[:3]
+    stacked = train.group_stacked_batches(same)[0]
+    scan_fn = train.make_scanned_epoch(model, opt, sched, "regression", mean,
+                                       std)
+    order = np.arange(len(same))
+    _, got = _counted(counters, launches, lambda: scan_fn(stacked, order))
+    with profiling.trace(os.path.join(out, "trace_gnn_simple")) as prof:
+        sums = scan_fn(stacked, order)
+        torch.cuda.synchronize()
+    top, rows = util.parse_kernel_stats(prof)
+    per_step = util.kernel_launches(rows) / len(same)
+    dev_ms = sum(r["total_time"] for r in rows) / 1e3 / len(same)
+    print(f"  GNNSimple L=15 h=1 (phase 10's replayed step, {MAIN_BS} "
+          f"molecules, loss sum {float(sums['loss']):.4f}): {len(same)} "
+          f"replays traced, {per_step:.1f} kernel launches a step, "
+          f"{len({r['op_name'] for r in rows if r['category'] == 'kernel'})} "
+          f"distinct kernels, {dev_ms:.3f} device ms a step on {card}; "
+          f"{_class_shares(rows)}")
+    for line in util.op_table("  top 15:", "", top, sum(
+            r["total_time"] for r in rows), width=70)[4:]:
+        print("   ", line)
+    if per_step <= PROFILE_MIN_PER_STEP or any(got.values()):
+        raise AssertionError(f"GNNSimple trace: {per_step} launches a step, "
+                             f"{got}")
+    del model, opt, sched, batches, stacked, scan_fn
+    torch.cuda.empty_cache()
+
+    # profile_ccn1d: K1 and K2 on the kernel path only
+    findings, got = counted(lambda: profile_ccn1d.main(
+        CCN1D_PROFILE_ARGV + ["--out", out]))
+    share = {k: sum(r["total_time"] for r in findings["kernel_trace"]["top_ops"]
+                    if f"ccn1d_{k}" in r["op_name"])
+             / findings["kernel_trace"]["device_time_total_us_3steps"]
+             for k in ("forward", "backward")}
+    print(f"  profile_ccn1d: {findings['config']['V']} vertices, plain "
+          f"{findings['step_ms']['xla']:.3f} ms a step, kernels "
+          f"{findings['step_ms']['pallas_kernel']:.3f} "
+          f"({findings['step_ms']['speedup']:.3f}x); K1 {100 * share['forward']:.1f} "
+          f"% and K2 {100 * share['backward']:.1f} % of the kernel path's traced "
+          f"device time; h sweep " + ", ".join(
+              f"h={r['h']} {r['xla_ms']:.3f} / {r['kernel_ms']:.3f} ms"
+              for r in findings["h_sweep"]) + f"; launches {got}")
+    if not (got["K1"] and got["K2"]) or got["K3"] or got["K4"] or got["K5"]:
+        raise AssertionError(f"profile_ccn1d launches {got}")
+    records = qm9.synthetic_qm9_like(int(CCN1D_PROFILE_ARGV[1]), seed=0)
+    ts = stats.compute_target_stats(records)
+    cb = ccn.make_ccn_batch(records, task=0, device=dev)
+    losses = {}
+    for kernel in (False, True):
+        def first_step():
+            model = profile_ccn1d.make_model(cb, 2, 20, kernel)
+            return float(profile_ccn1d.train_step(model, ts)(cb)["loss"])
+
+        losses[kernel], got = _counted(counters, launches, first_step)
+        _, got_ms = _counted(counters, launches, lambda: profile_ccn1d.step_ms(
+            profile_ccn1d.make_model(cb, 2, 20, kernel), cb, ts, steps=2))
+        moved = bool(got["K1"] and got["K2"] and got_ms["K1"] and got_ms["K2"])
+        if moved != kernel or got["K3"] or got_ms["K3"]:
+            raise AssertionError(f"profile_ccn1d kernel={kernel}: launches "
+                                 f"{got}, {got_ms}")
+    rel = abs(losses[True] - losses[False]) / abs(losses[False])
+    print(f"  profile_ccn1d first-step loss, same weights: plain "
+          f"{losses[False]:.7f}, kernels {losses[True]:.7f}, rel err "
+          f"{rel:.3e} (tolerance {CCN_PATHS_RTOL})")
+    if rel > CCN_PATHS_RTOL:
+        raise AssertionError("profile_ccn1d: the paths' first steps disagree")
+
+    # bench_serving: a fresh process, one whose first act is a profiler
+    # run, then this one
+    runs = {}
+    for label, note, cmd in (
+            ("fresh", "a fresh process",
+             ["-m", "hgnn2_torch.scripts.bench_serving"]),
+            ("profiled", "a fresh process whose first act is a torch.profiler "
+             "run", ["-c", "import sys, chip_smoke; chip_smoke."
+                     "_serving_after_profiler(sys.argv[1:])"])):
+        res_out = os.path.join(out, f"serving_{len(runs)}")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, *cmd, *SERVING_ARGV, "--out", res_out],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=900)
+        if proc.returncode:
+            raise AssertionError(f"bench_serving ({label}) exited "
+                                 f"{proc.returncode}:\n" + proc.stderr[-3000:])
+        child = next(json.loads(line)["launches"]
+                     for line in proc.stdout.splitlines()
+                     if line.startswith('{"launches"'))
+        for k, n in child.items():
+            launches[k] += n
+        with open(os.path.join(res_out, "results.json")) as f:
+            runs[label] = json.load(f)
+        print(f"  bench_serving in {note}: "
+              f"{time.perf_counter() - t0:.1f} s, rtt floor "
+              f"{runs[label]['rtt_floor_ms']} ms, launches {child}")
+        if not child["K3"] or any(n for k, n in child.items() if k != "K3"):
+            raise AssertionError(f"bench_serving launches {child}")
+    runs["in this process"], got = counted(lambda: bench_serving.main(
+        SERVING_ARGV + ["--out", os.path.join(out, "serving_here")]))
+    if not got["K3"] or any(n for k, n in got.items() if k != "K3"):
+        raise AssertionError(f"bench_serving in this process launched {got}")
+    for name, rows in runs["fresh"]["bundles"].items():
+        print(f"    {name}: p50 " + ", ".join(
+            f"{r['latency_ms_p50']} ms x{r['request_records']}" for r in rows)
+            + "; 2,048 records, molecules/s: " + ", ".join(
+                f"{run['bundles'][name][-1]['throughput_molecules_per_s']} "
+                f"{label}" for label, run in runs.items()))
+    print("    phase 9 in this process (other models, trained; buckets 1,024 "
+          "and 256): " + ", ".join(f"{k} {v:.1f}" for k, v in serve9.items())
+          + " molecules/s")
+
+    # packed_crossover: scan groups
+    with mock.patch.object(packed_crossover, "HS", CROSSOVER_HS):
+        res, got = counted(lambda: packed_crossover.main(
+            ["--molecules", str(HARNESS_MOLS), "--epochs", "1", "--out", out]))
+    records = _synthetic(HARNESS_MOLS)
+    want = {fam: _dense_groups(records, 2048, fam == "lggnn")
+            for fam in ("gnn", "lggnn")}
+    for r in res["rows"]:
+        print(f"    {r['family']} h={r['h']} {r['layout']}"
+              + (f" uniform_caps={r['uniform_caps']}" if "uniform_caps" in r
+                 else "")
+              + f": {r['epoch_s_mean']} s an epoch, {r['molecules_per_s']} "
+                f"molecules/s, {r['scan_bucket_groups']} groups")
+        if r["layout"] == "dense" and r["scan_bucket_groups"] != want[r["family"]]:
+            raise AssertionError(f"packed_crossover: {r} (groups {want})")
+        if r.get("uniform_caps") and r["scan_bucket_groups"] != 1:
+            raise AssertionError(f"packed_crossover: {r}")
+    if any(got.values()):
+        raise AssertionError(f"packed_crossover launched {got}")
+    torch.cuda.empty_cache()
+    print(f"  phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -3309,7 +3625,8 @@ def main() -> None:
 
     print("phase 9: serving from files (preprocess cache -> train -> export "
           "-> predict)")
-    served_files = phase_serve_files(dev, card)
+    serve9_rates: dict = {}
+    served_files = phase_serve_files(dev, card, serve9_rates)
 
     print("phase 10: the compiled step and the scanned epoch as CUDA graphs, "
           "captured against eager")
@@ -3333,12 +3650,16 @@ def main() -> None:
     print("phase 15: ranks on several processes (F4): the edge-partitioned "
           "and halo paths, one rank a process, K5 across them")
     across = phase_processes(dev, card)
+
+    print("phase 16: the measurement harnesses (profile_lggnn, "
+          "profile_ccn1d, bench_serving, packed_crossover)")
+    harnesses = phase_harnesses(dev, card, serve9_rates)
     for key, row in rows.items():  # launches of the main paths' runs
         row["launches"] = (served[key] + trained[key] + packed[key]
                            + main_path[key] + lggnn[key] + packed_train[key]
                            + served_files[key] + captured[key]
                            + sharded_runs[key] + dp_runs[key] + halo_runs[key]
-                           + high_degree[key])
+                           + high_degree[key] + harnesses[key])
     rows["K5 across processes"] = across
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "ms_in_run", "plain_ms", "bound_ms", "bound_by", "library_ms")

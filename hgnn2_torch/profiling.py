@@ -9,6 +9,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
+import tempfile
 import time
 from typing import Callable
 
@@ -160,16 +161,23 @@ def hbm_utilization(bytes_per_s: float) -> float | None:
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = os.path.join("runs", "trace")):
+def trace(log_dir: str = os.path.join(tempfile.gettempdir(), "hgnn2_trace")):
     """torch.profiler over the block (CPU activity, and CUDA's where there
-    is a card); yields the profiler and writes its chrome trace to
-    log_dir/trace.json at the end."""
+    is a card); yields the profiler, whose key_averages() the caller reads
+    after the block. The profiler stops and its chrome trace goes to
+    log_dir/trace.json in a ``finally``, so a block that raises still
+    leaves its trace (the exception propagates). The default directory is
+    JAX's, /tmp/hgnn2_trace on Linux, outside the working tree."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    prof = profile(activities=activities)
+    prof.start()
+    try:
         yield prof
-    os.makedirs(log_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    finally:
+        prof.stop()
+        os.makedirs(log_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

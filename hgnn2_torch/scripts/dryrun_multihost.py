@@ -612,7 +612,11 @@ def _fallback_steps(spec: str, args, mesh, pb, dev) -> dict:
 def _halo_steps(spec: str, args, grid, bundle, dev) -> dict:
     """Phase halo_giant_graph's model (bn_axis "edge"): args.steps
     evaluations of the halo loss and its gradients (spmd.backward), no
-    update; the first forward's halo exchanges (halo_comm_bytes)."""
+    update, each under runtime.deterministic (the segment sums' atomics
+    would make each evaluation differ from the last by several 1e-6 of
+    the loss, the size of the check against the control); the first
+    forward's halo exchanges (halo_comm_bytes)."""
+    from hgnn2_torch import runtime
     from hgnn2_torch.parallel import halo, spmd
 
     model = build_packed("halo_giant_graph", spec, args,
@@ -625,8 +629,9 @@ def _halo_steps(spec: str, args, grid, bundle, dev) -> dict:
         log = None if logs else halo.new_comm_log()
         if log is not None:
             logs.append(log)
-        loss = halo.halo_packed_loss(model, grid, bundle, comm_log=log)()
-        spmd.backward(loss, grid, params)
+        with runtime.deterministic():
+            loss = halo.halo_packed_loss(model, grid, bundle, comm_log=log)()
+            spmd.backward(loss, grid, params)
         return {"loss": loss.detach()}
 
     rec = _run(step, model, None, args.steps, grid)

@@ -1,0 +1,199 @@
+"""Profile the scanned line-graph GNN train step on the card (counterpart
+of scripts/profile_lggnn.py).
+
+    python -m hgnn2_torch.scripts.profile_lggnn [--molecules 16384]
+        [--batch_size 2048] [--h 1] [--packed | --fused]
+        [--sweep_h 1 4 16] [--device cuda|cpu] [--out DIR]
+
+Trains GNNLineGraph (L=5, J=1, update order 2; the dense one-hot layout,
+``--fused`` its FusedLGBundle form) or PackedLGGNN (``--packed``, the
+segment-sum layout) on synthetic QM9-shaped molecules through the
+shipped pipeline: DenseLoader(with_line_graph=True) or PackedLoader
+under CachedLoader(shuffle=False), Adamax at lr 3e-4,
+group_stacked_batches and make_scanned_epoch, every step one replayed
+CUDA graph. One warm-up epoch (the captures: compile_s) precedes the
+best of 3 timed run_epoch_scanned epochs (host clock, each ending in the
+metrics' fetch). One more epoch runs under profiling.trace into
+DIR/trace_{layout}_h{h}/trace.json, and the profiler's kernel table
+(profile_ccn1d_util.parse_kernel_stats: device kernels, memcpy and memset
+by self device time) gives DIR/summary_{layout}_h{h}.json and
+DIR/op_table_{layout}_h{h}.md, with JAX's keys plus n_kernels_per_step
+(the traced epoch's kernel launches over its steps) and card (nvidia-smi's
+name and power limit). ``--sweep_h`` times each width without a trace
+and writes DIR/h_sweep_{layout}.json. DIR defaults to
+runs/profile_lggnn_torch; set-up (records, batches) is logged apart from
+the epochs. The harness runs on the card, or on the CPU with --device
+cpu (no card: it raises).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import torch
+
+from hgnn2_torch import convert, profiling
+from hgnn2_torch.data import batching, qm9, stats
+from hgnn2_torch.nn import models, packed
+from hgnn2_torch.scripts import profile_ccn1d_util as util
+from hgnn2_torch.training import optim, train
+from hgnn2_torch.training.config import OptimConfig
+
+
+def log(msg):
+    print(msg, file=sys.stderr, flush=True)
+
+
+def build(records, ts, h, bs, use_packed, fused=False, device=None,
+          init_params=None):
+    """JAX's build on ``device``: (model, stacked groups, scan_fn, steps
+    an epoch). init_params: flax variables of the JAX model (JAX's init
+    through hgnn2_torch.convert); else weights from seed 0."""
+    dev = util.harness_device(device)
+    gen = torch.Generator().manual_seed(0)
+    n_in = records[0].x.shape[1]
+    if use_packed:
+        inner = batching.PackedLoader(records, bs, task=0, sort=True,
+                                      device=dev)
+        model = packed.PackedLGGNN(n_features=h, n_layers=5, in_features=n_in,
+                                   J=1, order=2, generator=gen)
+    else:
+        inner = batching.DenseLoader(records, bs, task=0,
+                                     with_line_graph=True, sort=True,
+                                     device=dev)
+        model = models.GNNLineGraph(in_features=n_in, n_features=h,
+                                    n_layers=5, J=1, order=2,
+                                    fused_ops=fused, generator=gen)
+    if init_params is not None:
+        model.load_state_dict(convert.variables_from_flax(init_params))
+    model.to(dev)
+    loader = batching.CachedLoader(inner, shuffle=False).materialize()
+    opt, sched = optim.build_optimizer(OptimConfig(optim="adamax", lr=3e-4),
+                                       len(loader), model.parameters())
+    groups = train.group_stacked_batches(loader.batches())
+    scan_fn = train.make_scanned_epoch(model, opt, sched, "regression",
+                                       float(ts.mean[0]), float(ts.std[0]))
+    return model, groups, scan_fn, len(loader)
+
+
+def timed_epochs(groups, scan_fn, epochs=3):
+    """(best epoch s, first epoch s, the last epoch's metrics): the first
+    epoch captures the step graphs (JAX's compile)."""
+    t0 = time.perf_counter()
+    train.run_epoch_scanned(groups, scan_fn)
+    compile_s = time.perf_counter() - t0
+    times = []
+    for _ in range(epochs):
+        t0 = time.perf_counter()
+        mets = train.run_epoch_scanned(groups, scan_fn)
+        times.append(time.perf_counter() - t0)
+    return min(times), compile_s, mets
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--molecules", type=int, default=16384)
+    ap.add_argument("--batch_size", type=int, default=2048)
+    ap.add_argument("--h", type=int, default=1)
+    ap.add_argument("--packed", action="store_true")
+    ap.add_argument("--fused", action="store_true",
+                    help="dense layout with FusedLGBundle combined-operator"
+                         " einsums")
+    ap.add_argument("--sweep_h", type=int, nargs="*", default=None)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--out", default=os.path.join("runs",
+                                                  "profile_lggnn_torch"))
+    args = ap.parse_args(argv)
+    dev = util.harness_device(args.device)
+    name = util.card(dev)
+    log(name)
+
+    t0 = time.perf_counter()
+    records = qm9.synthetic_qm9_like(args.molecules, seed=0)
+    ts = stats.compute_target_stats(records)
+    log(f"set-up: {len(records)} records in {time.perf_counter() - t0:.1f} s")
+    n_mol = len(records)
+    layout = ("packed" if args.packed
+              else "dense_fused" if args.fused else "dense")
+    os.makedirs(args.out, exist_ok=True)
+
+    if args.sweep_h:
+        out = []
+        for h in args.sweep_h:
+            t0 = time.perf_counter()
+            _, groups, scan_fn, n_steps = build(
+                records, ts, h, args.batch_size, args.packed, args.fused, dev)
+            log(f"set-up: batches in {time.perf_counter() - t0:.1f} s")
+            epoch_s, compile_s, mets = timed_epochs(groups, scan_fn)
+            row = {
+                "layout": layout, "h": h, "epoch_s": epoch_s,
+                "per_step_ms": 1e3 * epoch_s / n_steps,
+                "molecules_per_s": n_mol / epoch_s,
+                "compile_s": compile_s,
+                "loss": float(mets["loss"]),
+            }
+            out.append(row)
+            log(f"h={h} [{layout}]: epoch {epoch_s:.4f} s "
+                f"({row['per_step_ms']:.3f} ms/step, "
+                f"{row['molecules_per_s']:,.0f} mol/s) on {name}")
+            del groups, scan_fn
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        with open(os.path.join(args.out, f"h_sweep_{layout}.json"), "w") as f:
+            json.dump(out, f, indent=2)
+        print(json.dumps(out))
+        return out
+
+    t0 = time.perf_counter()
+    _, groups, scan_fn, n_steps = build(
+        records, ts, args.h, args.batch_size, args.packed, args.fused, dev)
+    log(f"set-up: batches in {time.perf_counter() - t0:.1f} s")
+    epoch_s, compile_s, mets = timed_epochs(groups, scan_fn)
+    log(f"[{layout} h={args.h}] scanned epoch {epoch_s:.4f} s over {n_steps} "
+        f"steps ({1e3 * epoch_s / n_steps:.3f} ms/step, "
+        f"{n_mol / epoch_s:,.0f} mol/s), capture epoch {compile_s:.2f} s")
+
+    trace_dir = os.path.join(args.out, f"trace_{layout}_h{args.h}")
+    with profiling.trace(trace_dir) as prof:
+        train.run_epoch_scanned(groups, scan_fn)
+    top, all_rows = util.parse_kernel_stats(prof)
+
+    dev_total_us = sum(r["total_time"] for r in all_rows)
+    summary = {
+        "layout": layout,
+        "h": args.h,
+        "molecules": n_mol,
+        "batch_size": args.batch_size,
+        "steps_per_epoch": n_steps,
+        "scanned_epoch_s": epoch_s,
+        "per_step_ms": 1e3 * epoch_s / n_steps,
+        "molecules_per_s": n_mol / epoch_s,
+        "device_time_total_us": dev_total_us,
+        "n_kernels_per_step": util.kernel_launches(all_rows) / n_steps,
+        "card": name,
+        "top_ops": top,
+    }
+    with open(os.path.join(args.out, f"summary_{layout}_h{args.h}.json"),
+              "w") as f:
+        json.dump(summary, f, indent=2)
+    md = util.op_table(
+        f"# Scanned LGGNN step profile ({layout}, h={args.h})",
+        f"epoch {epoch_s:.4f} s / {n_steps} steps = "
+        f"{1e3 * epoch_s / n_steps:.3f} ms/step; device time "
+        f"{dev_total_us / 1e3:.3f} ms over the traced epoch; "
+        f"{summary['n_kernels_per_step']:.1f} kernels a step; {name}", top,
+        dev_total_us)
+    with open(os.path.join(args.out, f"op_table_{layout}_h{args.h}.md"),
+              "w") as f:
+        f.write("\n".join(md) + "\n")
+    log("\n".join(md[:20]))
+    print(json.dumps({k: v for k, v in summary.items() if k != "top_ops"}))
+    return summary
+
+
+if __name__ == "__main__":
+    main()

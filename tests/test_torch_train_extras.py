@@ -372,6 +372,25 @@ def test_profiling_matches_jax_and_has_no_cpu_peaks():
     assert not torch.backends.cudnn.allow_tf32
 
 
+def test_runtime_deterministic_is_scoped():
+    """runtime.deterministic turns deterministic algorithms on (warn-only)
+    for its block and restores the flags after it, also when the block
+    raises; index_add_ has a deterministic form, so nothing is named."""
+    assert not torch.are_deterministic_algorithms_enabled()
+    with runtime.deterministic() as refused:
+        assert torch.are_deterministic_algorithms_enabled()
+        assert torch.is_deterministic_algorithms_warn_only_enabled()
+        out = torch.zeros(3).index_add_(0, torch.tensor([0, 0, 2]),
+                                        torch.ones(3))
+    assert refused == [] and out.tolist() == [2.0, 0.0, 1.0]
+    assert not torch.are_deterministic_algorithms_enabled()
+    with pytest.raises(ValueError, match="inside"):
+        with runtime.deterministic():
+            raise ValueError("inside")
+    assert not torch.are_deterministic_algorithms_enabled()
+    assert not torch.is_deterministic_algorithms_warn_only_enabled()
+
+
 def test_port_imports_no_jax_or_matplotlib():
     """Importing every module of the port (the ingestion, native library,
     serving, export, predict and preprocess modules among them),
