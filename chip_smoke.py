@@ -190,6 +190,19 @@ Phases, each of which raises on failure (nothing is caught):
               packed_crossover at h = 1 and 16 over 8,192 molecules, one
               epoch (scan groups: 1 for every packed row with uniform
               capacities, the dense rows' from the records' sizes).
+ 17. quality  the quality harnesses of hgnn2_torch/scripts at a cut:
+     harnesses regression_floor at n = 2,000 and 8,000 against JAX's
+              committed floor.json files (rtol 1e-9); each of
+              run_validation's nine RUNS entries for 2 epochs (JAX's data,
+              models and batches; the cut set on the cfg): history length
+              (the recalibration row included), finite values, the CCN
+              kernels' launches against the K rule (K3 and K4 in
+              reg_ccn2d at K = 5; none in cls_ccn1d at K = 11 > 8), the gnn
+              range splits' 800 molecules all in range; reg_ccn2d's first
+              two steps on the kernel path against the plain path from the
+              same weights (1e-5); diagnose_quality_gap's linear probe (2
+              epochs) and BN modes on the cut control run's model, its
+              running statistics bit-equal after the train-mode pass.
 
 Phases 4 and 6-10 train through fit and phase 11 through fit_sharded,
 whose epochs replay CUDA graphs: a kernel wrapper's launch count moves
@@ -3571,6 +3584,167 @@ def phase_harnesses(dev, card: str, serve9: dict) -> dict[str, int]:
     return launches
 
 
+# phase 17: the quality harnesses of hgnn2_torch/scripts, cut in size
+QUALITY_EPOCHS = 2  # each RUNS entry's epochs here (JAX's: 40, 120 and 200)
+FLOOR_RTOL = 1e-9  # the floors against JAX's committed floor.json
+
+
+def _floors_match(out: str) -> None:
+    """regression_floor at n = 2,000 and 8,000 against JAX's committed
+    runs/validation_reg_floor{,_8000}/floor.json."""
+    from hgnn2_torch.scripts import regression_floor
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    for n, committed in ((2000, "validation_reg_floor"),
+                         (8000, "validation_reg_floor_8000")):
+        got = _quiet(lambda: regression_floor.main(
+            ["--n", str(n), "--out", os.path.join(out, f"floor_{n}_torch")]))
+        with open(os.path.join(here, "runs", committed, "floor.json")) as f:
+            want = json.load(f)
+        worst = 0.0
+        for split in ("splits", "order_blind_oracle_splits"):
+            for name, row in want[split].items():
+                for k, v in row.items():
+                    worst = max(worst, abs(got[split][name][k] - v) / abs(v))
+        print(f"  regression_floor n={n}: train error ratio "
+              f"{got['splits']['train']['error_ratio']:.6f}, order-blind "
+              f"{got['order_blind_oracle_splits']['train']['error_ratio']:.6f};"
+              f" largest rel err against runs/{committed}/floor.json "
+              f"{worst:.3e} (tolerance {FLOOR_RTOL})")
+        if worst > FLOOR_RTOL:
+            raise AssertionError(f"regression_floor n={n} departs from JAX's")
+
+
+def _ccn2d_paths(dev, counters) -> None:
+    """validation_reg_ccn2d's model (CCN2D L=3, h=6) from the same seeded
+    weights on the plain path and on the kernel path (K3, K4): the losses
+    of the first two Adamax steps on the run's first train batch."""
+    from hgnn2_torch.cli import common
+    from hgnn2_torch.data import batching, synthetic
+    from hgnn2_torch.scripts.run_validation import RUNS
+    from hgnn2_torch.training import optim, train
+
+    cfg = RUNS["validation_reg_ccn2d"]()
+    records, kind, ts, _ = common.load_records(cfg)
+    tr = synthetic.split_80_10_10(records)[0]
+    batch = next(iter(batching.CCNLoader(tr, cfg.batch_size, task=0,
+                                         device=dev)))
+    mean, std = float(ts.mean[0]), float(ts.std[0])
+    losses, weights = {}, None
+    for kernel in (False, True):
+        cfg.model.ccn_kernel = kernel
+        model = common.build_model(cfg, kind, records[0].x.shape[1]).to(dev)
+        sd = {k: v.detach().cpu().clone()
+              for k, v in model.state_dict().items()}
+        weights = weights or sd
+        if any(not torch.equal(sd[k], weights[k]) for k in sd):
+            raise AssertionError("reg_ccn2d: the two paths' weights differ")
+        opt, sched = optim.build_optimizer(cfg.optim, 1, model.parameters())
+
+        def steps():
+            return [float(train.train_step(model, opt, sched, batch,
+                                           mean=mean, std=std)["loss"])
+                    for _ in range(2)]
+
+        losses[kernel], got = _counted(counters, dict.fromkeys(counters, 0),
+                                       steps)
+        if bool(got["K3"] and got["K4"]) != kernel or got["K1"] or got["K2"]:
+            raise AssertionError(f"reg_ccn2d kernel={kernel}: launches {got}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses[True], losses[False]))
+    print(f"  reg_ccn2d (CCN2D L=3 h=6, {cfg.batch_size} molecules) losses of "
+          f"the first 2 steps, same weights: plain {losses[False]}, kernels "
+          f"{losses[True]}, largest rel err {rel:.3e} (tolerance "
+          f"{CCN_PATHS_RTOL})")
+    if rel > CCN_PATHS_RTOL:
+        raise AssertionError("reg_ccn2d: the paths' first steps disagree")
+
+
+def phase_quality(dev, card: str) -> dict[str, int]:
+    """The quality harnesses of hgnn2_torch/scripts at a cut: the floors
+    against JAX's committed files; each of run_validation's nine RUNS
+    entries through run_one for QUALITY_EPOCHS epochs (the cut set on the
+    cfg; JAX's data sizes, models and batches), its history's length
+    (the recalibration row included) and finiteness, the CCN kernels'
+    launches against the K rule (K3 and K4 in reg_ccn2d at K = 5, none in
+    cls_ccn1d at K = 11 > 8, none in the GNN runs) and the gnn range
+    splits' counts; reg_ccn2d's kernel path against its plain path;
+    diagnose_quality_gap's probe (QUALITY_EPOCHS epochs) and BN modes on
+    the cut control run's model, whose running statistics the train-mode
+    pass leaves bit-equal. Returns each kernel's launches in the runs."""
+    from hgnn2_torch.cli import common
+    from hgnn2_torch.data import synthetic
+    from hgnn2_torch.ops import ccn_fused
+    from hgnn2_torch.scripts import diagnose_quality_gap as dq
+    from hgnn2_torch.scripts import run_validation as rv
+
+    t_phase = time.perf_counter()
+    out = os.path.join(OUT_DIR, "quality")
+    counters = _counters()
+    launches = dict.fromkeys(counters, 0)
+    _floors_match(out)
+
+    control = None
+    for name, make in rv.RUNS.items():
+        cfg = make()
+        cfg.epochs, cfg.device = QUALITY_EPOCHS, str(dev)
+        cfg.log_path = os.path.join(out, f"{name}_torch")
+        (model, history, rec), got = _counted(
+            counters, launches, lambda: rv.run_one(name, cfg, banded=False))
+        rows = QUALITY_EPOCHS + cfg.bn_recalibrate
+        finite = all(np.isfinite(v) for r in history for v in r.values())
+        last = {k: round(v, 4) for k, v in history[-1].items()
+                if k.endswith(("accuracy", "error_ratio"))}
+        print(f"  {name}: {len(history)} rows, last {last}, "
+              f"{60 * rec['minutes']:.1f} s"
+              + (f", K = {rec['K']}" if "K" in rec else "")
+              + f", launches {got}")
+        if len(history) != rows or not finite:
+            raise AssertionError(f"{name}: {len(history)} rows (want {rows}),"
+                                 f" finite {finite}")
+        if name == "validation_reg_ccn2d":
+            kernel = ccn_fused.use_kernel(rec["K"], dev)
+            if rec["K"] != 5 or not (kernel and got["K3"] and got["K4"]) or (
+                    got["K1"] or got["K2"] or got["K5"]):
+                raise AssertionError(f"{name}: K = {rec['K']}, launches {got}")
+        elif name == "validation_cls_ccn1d":
+            if rec["K"] <= ccn_fused.MAX_K or any(got.values()):
+                raise AssertionError(f"{name}: K = {rec['K']}, launches {got}")
+        elif any(got.values()):
+            raise AssertionError(f"{name} launched {got}")
+        if name in rv.RANGE_SPLIT:
+            split = rec["range_split"]
+            if (split["val_count"], split["val_out_of_range_count"]) != (800, 0):
+                raise AssertionError(f"{name} range split: {split}")
+        if name == dq.CONTROL:
+            control = (cfg, model)
+        del model
+    _ccn2d_paths(dev, counters)
+
+    cfg, model = control
+    records, _, ts, _ = common.load_records(cfg)
+    tr, va, _ = synthetic.split_80_10_10(records)
+    t0 = time.perf_counter()
+    probe = dq.linear_probe(cfg, tr, va, ts, dev)
+    probe_s = time.perf_counter() - t0
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    modes = dq.bn_mode_eval(cfg, model, va, ts)
+    same = all(torch.equal(v, before[k]) for k, v in model.state_dict().items())
+    print(f"  diagnose_quality_gap: probe ({QUALITY_EPOCHS} epochs, "
+          f"{probe_s:.1f} s) train {probe['train_error_ratio']:.5f}, val "
+          f"{probe['val_error_ratio']:.5f}; the cut control's BN modes: eval "
+          f"{modes['val_error_ratio_eval']:.4f}, train stats "
+          f"{modes['val_error_ratio_train_stats']:.4f}; running stats "
+          f"bit-equal after the train-mode pass: {same}")
+    if not same or not all(np.isfinite(v) for v in (
+            probe["train_error_ratio"], probe["val_error_ratio"],
+            modes["val_error_ratio_eval"],
+            modes["val_error_ratio_train_stats"])):
+        raise AssertionError("diagnose_quality_gap at the cut")
+    torch.cuda.empty_cache()
+    print(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -3654,12 +3828,16 @@ def main() -> None:
     print("phase 16: the measurement harnesses (profile_lggnn, "
           "profile_ccn1d, bench_serving, packed_crossover)")
     harnesses = phase_harnesses(dev, card, serve9_rates)
+
+    print("phase 17: the quality harnesses (regression_floor, "
+          "run_validation's nine runs, diagnose_quality_gap), cut")
+    quality = phase_quality(dev, card)
     for key, row in rows.items():  # launches of the main paths' runs
         row["launches"] = (served[key] + trained[key] + packed[key]
                            + main_path[key] + lggnn[key] + packed_train[key]
                            + served_files[key] + captured[key]
                            + sharded_runs[key] + dp_runs[key] + halo_runs[key]
-                           + high_degree[key] + harnesses[key])
+                           + high_degree[key] + harnesses[key] + quality[key])
     rows["K5 across processes"] = across
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "ms_in_run", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -39,6 +39,12 @@ def ref_linear(fan_in: int, fan_out: int,
     return lin
 
 
+def _at_least_f32(dtype: torch.dtype) -> torch.dtype:
+    """float32 for bf16 and f32, float64 for f64: the dtype of the
+    statistics and sums that stay f32 under mixed precision."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def _dense(lin: nn.Linear, x: torch.Tensor,
            dtype: torch.dtype | None = None) -> torch.Tensor:
     """lin(x) computed in ``dtype``, or else in the promoted dtype of x and
@@ -84,8 +90,8 @@ class MaskedBatchNorm(nn.Module):
     running <- (1 - momentum) * batch + momentum * running with momentum
     0.1. The running std starts at 1 (0 under compat). Parameters
     ``scale`` and ``bias`` (0-d under scalar_affine_bn) and buffers
-    ``mean`` and ``std`` carry the flax names. Computes in float32 and
-    returns the input's dtype.
+    ``mean`` and ``std`` carry the flax names. Computes in float32 (float64
+    for a float64 input) and returns the input's dtype.
 
     axis_name (a mesh axis, "edge", or a tuple of them, ("data", "edge"))
     pools the statistics over every rank of those axes, as the JAX
@@ -116,8 +122,8 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, h: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         in_dtype = h.dtype
-        h = h.float()
-        m = mask.float()[..., None]
+        h = h.to(_at_least_f32(h.dtype))
+        m = mask.to(h.dtype)[..., None]
         hm = h * m
         if self.training:
             axes = tuple(range(h.dim() - 1))
@@ -222,7 +228,7 @@ class ReadoutLayer(nn.Module):
         y = _dense(self.fc, bundle.graph_op(x), self.dtype)
         if self.compat.mask_readout_bias:
             y = y * mask[..., None]
-        return y.float().sum(dim=1)
+        return y.to(_at_least_f32(y.dtype)).sum(dim=1)
 
 
 class LGLayer(nn.Module):
@@ -325,4 +331,4 @@ class LGReadoutLayer(nn.Module):
         y = _dense(self.fc, x1, self.dtype)
         if self.compat.mask_readout_bias:
             y = y * mask[..., None]
-        return y.float().sum(dim=1)
+        return y.to(_at_least_f32(y.dtype)).sum(dim=1)

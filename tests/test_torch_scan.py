@@ -10,10 +10,11 @@ held to the eager steps on the card by tests/test_torch_cuda_graphs.py
 10.
 
 Tolerances, as tests/test_torch_gnn_train.py's: epoch metrics rtol 1e-4;
-parameters atol 1e-6 plus the lr of every step at which an entry's
-gradient was rounding-level (below 1e-6) in both packages, since Adamax
-steps such a weight by about lr with the rounding's sign (a BN running
-mean gets its unit's biases' allowance); evaluate_scanned rtol 1e-6; BN
+parameters atol 1e-6 plus the allowance of
+tests/test_torch_trajectory_slack.py on the steps at which an entry's
+exact gradient is zero by structure (Adamax steps such a weight by up to
+about lr with its rounding's sign) or lies in Adamax's eps band (a BN
+running mean gets its unit's biases' allowance); evaluate_scanned rtol 1e-6; BN
 statistics rtol 1e-5, atol 1e-6; a step's metrics rtol 1e-5."""
 
 import copy
@@ -41,6 +42,7 @@ from hgnn2_torch.data import batching, qm9
 from hgnn2_torch.nn import ccn, models, packed
 from hgnn2_torch.training import optim, train
 from hgnn2_torch.training.config import OptimConfig
+from test_torch_trajectory_slack import TrajectorySlack
 
 torch.set_num_threads(2)
 
@@ -128,14 +130,14 @@ def trained(request):
     opt, sched = optim.build_optimizer(OptimConfig(**OCFG), len(mine),
                                        model.parameters())
     groups = train.group_stacked_batches(mine)
-    steps = []  # (y, lr, gradients) of every port step
+    steps = []  # y of every port step
+    slack = TrajectorySlack(model, to_flax)
     real = train._train_body
 
     def spy(model, optimizer, batch, *args):
-        lr = optimizer.param_groups[0]["lr"]
-        out = real(model, optimizer, batch, *args)
-        steps.append((batch.y.numpy().copy(), lr, {
-            n: p.grad.detach().clone() for n, p in model.named_parameters()}))
+        with slack.step(optimizer.param_groups[0]["lr"]):
+            out = real(model, optimizer, batch, *args)
+        steps.append(batch.y.numpy().copy())
         return out
 
     scan_fn = train.make_scanned_epoch(model, opt, sched, "regression", mean, std)
@@ -170,7 +172,7 @@ def trained(request):
                 jsteps.append((np.asarray(b.y), _np(grad_fn(sstate, b))))
                 sstate, _ = jstep(sstate, b)
     return dict(arch=arch, model=model, state=jstate, got=got, want=want,
-                steps=steps, jsteps=jsteps, groups=groups, jgroups=jgroups,
+                steps=steps, jsteps=jsteps, slack=slack, groups=groups, jgroups=jgroups,
                 to_port=to_port, to_flax=to_flax, mean=mean, std=std,
                 fresh=lambda: _setup(arch)[3])
 
@@ -182,18 +184,13 @@ def test_run_epoch_scanned_matches_jax(trained):
     t = trained
     assert len(t["steps"]) == len(t["jsteps"]) == EPOCHS * sum(
         train._group_size(g) for g in t["groups"])
-    for (y, _, _), (jy, _) in zip(t["steps"], t["jsteps"]):
+    for y, (jy, _) in zip(t["steps"], t["jsteps"]):
         np.testing.assert_array_equal(y, jy)
     for got, want in zip(t["got"], t["want"]):
         assert got.keys() == want.keys() == {"loss", "mae"}
         for k in got:
             np.testing.assert_allclose(got[k], want[k], rtol=1e-4, err_msg=k)
-    slack: dict = {}
-    for (_, lr, grads), (_, jgrads) in zip(t["steps"], t["jsteps"]):
-        flat = dict(_leaves(t["to_flax"](grads)["params"]))
-        for path, g in _leaves(jgrads):
-            quiet = (np.abs(flat[path]) < 1e-6) & (np.abs(g) < 1e-6)
-            slack[path] = slack.get(path, 0.0) + lr * quiet
+    slack = t["slack"].allowance([jgrads for _, jgrads in t["jsteps"]])
     final = t["to_flax"](t["model"].state_dict())
     want = _variables(t["state"])
     for path, p in _leaves(final["params"]):
