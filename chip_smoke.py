@@ -203,6 +203,21 @@ Phases, each of which raises on failure (nothing is caught):
               same weights (1e-5); diagnose_quality_gap's linear probe (2
               epochs) and BN modes on the cut control run's model, its
               running statistics bit-equal after the train-mode pass.
+ 18. last     hgnn2_torch/scripts/bench_suite.py's sections at a cut
+     harnesses (512 molecules, 3 timed calls, the packed SpMM at scale
+              at 2^16 nodes, the halo build at 40,000 edges): the launches
+              of each section against the K rule (K1-K4 in the CCN rows'
+              kernel paths; K3 and K4 at K = 8, inside the captured
+              10-step graphs; none on a plain path or at K = 32), K = 8
+              and 32, K3's refusal at K = 32, the K = 8 kernel row's first
+              loss against the plain row's (1e-5), every chained SpMM's
+              graph output against its eager calls (f32 1e-5, bf16 2^-7),
+              the halo rows against the CPU's count; bench_scaling.py
+              (128 molecules, a 256-node giant graph, 1, 2, 4 ranks) on the
+              card and on the CPU, their comm accounting equal;
+              ccn_card_runs.py's chunks run (--edge_shards 4 --chunks 2
+              against --chunks 1, one epoch, 1e-5) and scan run (CCN2D at
+              K = 5: materialized, scan within 1e-4, kernels).
 
 Phases 4 and 6-10 train through fit and phase 11 through fit_sharded,
 whose epochs replay CUDA graphs: a kernel wrapper's launch count moves
@@ -3745,6 +3760,163 @@ def phase_quality(dev, card: str) -> dict[str, int]:
     return launches
 
 
+# phase 18: the JAX repo's last harnesses, and the CCN-2D runs on the card
+SUITE_BS, SUITE_STEPS = 512, 3  # bench_suite's molecules and timed calls
+SUITE_LARGE_NODES = 1 << 16  # the packed SpMM at scale: 2^20 edges
+HALO_CUT = (40_000, 51)  # (edges, halo rows a shard) at V = 2^18, 8 shards:
+# tests/test_torch_bench_suite.py holds this count to JAX's on the CPU
+SCALING_ARGV = ["--molecules", "128", "--nodes", "256", "--steps", "2",
+                "--ranks", "4"]
+CHUNKS_CUT = dict(epochs=1, n_synthetic=1000)  # run (a): --chunks 2 vs 1
+SCAN_CUT = dict(bs=SUITE_BS, steps=1)  # run (b): the scan at K = 5
+SUITE_RTOL = 1e-5  # K = 8 rows' first loss; chained f32 ops, x max |value|
+SUITE_BF16_TOL = 2.0 ** -7  # chained bf16 ops against their eager calls
+HIGH_K_REFUSAL = r"unroll\w* over K=32 > 8"
+SCALING_FIELDS = ("comm_bytes_per_step", "halo_rows_node", "halo_rows_edge",
+                  "allreduces_fwd", "mesh")
+
+
+def _nbytes_str(n) -> str:
+    return "n/a" if n is None else f"{n:,} B"
+
+
+def _launch_rule(section: str, got: dict, want: set) -> None:
+    """Raises unless exactly the kernels in ``want`` launched."""
+    if any((n > 0) != (k in want) for k, n in got.items()):
+        raise AssertionError(f"{section}: launches {got}, expected "
+                             f"{sorted(want) or 'none'}")
+
+
+def _chained_vs_eager(keep: dict, card: str) -> None:
+    """Each chained op's graph output against n eager calls on the card."""
+    for name, (fn, x0, n, out) in keep.items():
+        x = x0
+        for _ in range(n):
+            x = fn(x).to(x0.dtype)
+        want = x.float()
+        err = float((out.float() - want).abs().max() / want.abs().max())
+        tol = SUITE_BF16_TOL if "bf16" in name else SUITE_RTOL
+        print(f"  chained {name} (n = {n}, {tuple(x0.shape)} "
+              f"{str(x0.dtype).split('.')[-1]}): graph vs eager max err / "
+              f"max |value| {err:.3e} (tolerance {tol:.3g}) on {card}")
+        if not err <= tol:
+            raise AssertionError(f"chained {name}: the graph departs from "
+                                 "its eager calls")
+
+
+def _scaling_rows(res: dict) -> dict:
+    rows = {(mode, int(d), f): row.get(f)
+            for mode, block in res["lggnn"].items() if isinstance(block, dict)
+            and "devices" in block
+            for d, row in block["devices"].items() for f in SCALING_FIELDS}
+    return {k: v for k, v in rows.items() if v is not None}
+
+
+def phase_suite(dev, card: str) -> dict[str, int]:
+    """bench_suite's sections at a cut (SUITE_BS molecules, SUITE_STEPS
+    timed calls, the packed SpMM at scale at SUITE_LARGE_NODES nodes, the
+    halo build at HALO_CUT's edges; the K = 8 and K = 32 batches whole):
+    each section's launches against the K rule (K1-K4 in the CCN rows'
+    kernel paths, K3 and K4 at K = 8 inside the captured steps, none on
+    the plain paths, at K = 32 or anywhere else), K = 8 and 32 and the
+    high-K refusal's text, the K = 8 kernel row's first loss against the
+    plain row's from the same weights (SUITE_RTOL), every chained op's
+    graph output against its eager calls, the halo rows against HALO_CUT;
+    bench_scaling at SCALING_ARGV on the card and on the CPU, their comm
+    accounting equal; ccn_card_runs' chunks (one epoch) and scan (one
+    timed call) runs within their bars. Returns each kernel's
+    launches."""
+    from hgnn2_torch.scripts import bench_scaling
+    from hgnn2_torch.scripts import bench_suite as bs
+    from hgnn2_torch.scripts import ccn_card_runs
+
+    t_phase = time.perf_counter()
+    out = os.path.join(OUT_DIR, "suite")
+    counters = _counters()
+    launches = dict.fromkeys(counters, 0)
+    results, rows, keep = {}, {}, {}
+    records = bs.qm9_records(SUITE_BS)
+
+    def run(section, want, fn):
+        res, got = _counted(counters, launches, fn)
+        _launch_rule(section, got, want)
+        print(f"  {section}: launches {got}")
+        return res
+
+    batch = run("bench_suite gnn rows", set(), lambda: bs.gnn_section(
+        records, SUITE_BS, SUITE_STEPS, dev, results, rows))
+    run("bench_suite ccn rows", {"K1", "K2", "K3", "K4"},
+        lambda: bs.ccn_section(records, SUITE_BS, SUITE_STEPS, dev, results,
+                               rows))
+    run("bench_suite K = 8 rows", {"K3", "K4"}, lambda: bs.k8_section(
+        bs.k8_records(), SUITE_STEPS, dev, results, rows))
+    run("bench_suite high-K rows", set(), lambda: bs.high_k_section(
+        bs.dense_records(), SUITE_STEPS, dev, results, rows))
+    refusal = results["ccn2d_highK_kernel"]
+    first = [rows[f"ccn2d_K8_{p}_"]["losses"][0] for p in ("kernel", "plain")]
+    k8_err = abs(first[0] - first[1]) / abs(first[1])
+    print(f"  K = {results['ccn2d_K8_K']} and {results['ccn2d_highK_K']}; "
+          f"high K: {refusal!r}; K = 8 first call's loss kernel {first[0]:.8e}"
+          f" vs plain {first[1]:.8e}, rel err {k8_err:.3e} (tolerance "
+          f"{SUITE_RTOL})")
+    if (results["ccn2d_K8_K"], results["ccn2d_highK_K"]) != (8, 32) or not (
+            refusal.startswith("refused: ")
+            and re.search(HIGH_K_REFUSAL, refusal)) or k8_err > SUITE_RTOL:
+        raise AssertionError("bench_suite's K = 8 or high-K rows")
+    part = bs.halo_section(bs.HALO_NODES, bs.HALO_SHARDS, HALO_CUT[0],
+                           results)
+    if part.n_imports != HALO_CUT[1]:
+        raise AssertionError(f"halo rows {part.n_imports} at {HALO_CUT[0]} "
+                             f"edges, the CPU's {HALO_CUT[1]}")
+    run("bench_suite bf16 row", set(), lambda: bs.bf16_section(
+        batch, SUITE_BS, SUITE_STEPS, dev, results, rows))
+    run("bench_suite SpMM roofline", set(), lambda: bs.spmm_section(
+        records, batch, SUITE_BS, SUITE_STEPS, dev, SUITE_LARGE_NODES,
+        results, rows, keep))
+    _chained_vs_eager(keep, card)
+    for name, row in rows.items():
+        print(f"  {name}: {row['ms_per_step']:.4f} ms a step, peak "
+              f"{_nbytes_str(row['peak_bytes'])}")
+    del keep, batch
+    torch.cuda.empty_cache()
+
+    sc = {}
+    for where in ("card", "cpu"):
+        argv = SCALING_ARGV + ["--device", str(dev) if where == "card"
+                               else "cpu", "--out",
+                               os.path.join(out, f"scaling_{where}_torch")]
+        sc[where] = run(f"bench_scaling on the {where}", set(),
+                        lambda: _quiet(lambda: bench_scaling.main(argv)))
+    got, want = _scaling_rows(sc["card"]), _scaling_rows(sc["cpu"])
+    aligned = [r["comm_bytes_per_step"] for r in
+               sc["card"]["lggnn"]["molecule_aligned"]["devices"].values()]
+    print(f"  bench_scaling {' '.join(SCALING_ARGV)}: {len(got)} accounting "
+          f"fields of 4 modes at 1, 2, 4 ranks, card == CPU: {got == want}; "
+          f"molecule_aligned {aligned} B a step")
+    if got != want or len(got) < 20:
+        raise AssertionError("bench_scaling's accounting differs from the "
+                             "CPU's")
+
+    rec = run("ccn_card_runs chunks", set(),
+              lambda: _quiet(lambda: ccn_card_runs.chunks(str(dev),
+                                                          **CHUNKS_CUT)))
+    print(f"  run (a) --edge_shards 4 --chunks 2 vs 1, {CHUNKS_CUT['epochs']}"
+          f" epoch: max rel err {rec['max_rel_err']:.3e} (tolerance "
+          f"{rec['tolerance']}); ms a step "
+          f"{rec['runs']['chunks2']['ms_per_step']:.3f} vs "
+          f"{rec['runs']['chunks1']['ms_per_step']:.3f}")
+    rec = run("ccn_card_runs scan", {"K3", "K4"},
+              lambda: ccn_card_runs.scan_k5(str(dev), **SCAN_CUT))
+    print(f"  run (b) the scan at K = {rec['K']} (V = {rec['V']}): losses vs "
+          f"materialized {rec['max_rel_err']} (tolerance {rec['tolerance']});"
+          + "".join(f" {k} {r['ms_per_step']:.3f} ms, peak "
+                    f"{_nbytes_str(r['peak_bytes'])};"
+                    for k, r in rec["rows"].items()))
+    torch.cuda.empty_cache()
+    print(f"  phase 18 took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -3832,12 +4004,17 @@ def main() -> None:
     print("phase 17: the quality harnesses (regression_floor, "
           "run_validation's nine runs, diagnose_quality_gap), cut")
     quality = phase_quality(dev, card)
+
+    print("phase 18: the last harnesses (bench_suite, bench_scaling) and the "
+          "CCN-2D card runs, cut")
+    suite = phase_suite(dev, card)
     for key, row in rows.items():  # launches of the main paths' runs
         row["launches"] = (served[key] + trained[key] + packed[key]
                            + main_path[key] + lggnn[key] + packed_train[key]
                            + served_files[key] + captured[key]
                            + sharded_runs[key] + dp_runs[key] + halo_runs[key]
-                           + high_degree[key] + harnesses[key] + quality[key])
+                           + high_degree[key] + harnesses[key] + quality[key]
+                           + suite[key])
     rows["K5 across processes"] = across
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "ms_in_run", "plain_ms", "bound_ms", "bound_by", "library_ms")

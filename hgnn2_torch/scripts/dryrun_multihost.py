@@ -44,7 +44,8 @@ each with its own timeout; each joins the process group
      --fallback_models (default PackedLGGNN h=8 L=3 J=1 order 2,
      bench_scaling.py:291-330) over the same molecules, every all-reduce
      the differentiable plain one (spmd._AllReduce), the gradient by
-     spmd.backward;
+     spmd.backward, each step under runtime.deterministic (the
+     replicated node-level work's segment sums in a fixed order);
   6. halo_giant_graph: one giant graph of --halo_nodes nodes
      (bench_scaling.py's) over the processes as halo ranks
      (global_mesh(("edge",))), the --halo_models (default PackedLGGNN
@@ -586,7 +587,14 @@ def _fallback_steps(spec: str, args, mesh, pb, dev) -> dict:
     """Phase psum_fallback's model: args.steps SGD steps of the masked
     squared error (bench_scaling.py's loss) through the edge-partitioned
     ops with the plain, differentiable reduce, backpropagated by
-    spmd.backward (the gradient summed over the processes once)."""
+    spmd.backward (the gradient summed over the processes once). Each
+    step runs under runtime.deterministic: every process computes the
+    node-level work after each reduce on its own replica, and the segment
+    sums' atomics would round those replicas differently (a loss of 110.9
+    one ulp apart on one of 4 processes sharing a card), so the processes'
+    losses could not agree to AGREE; an op left without a deterministic
+    form raises."""
+    from hgnn2_torch import runtime
     from hgnn2_torch.parallel import spmd
 
     model = build_packed("psum_fallback", spec, args, pb.x.shape[1]).to(dev)
@@ -596,11 +604,15 @@ def _fallback_steps(spec: str, args, mesh, pb, dev) -> dict:
     def step(batch):
         opt.zero_grad()
         model.train()
-        ops = spmd.partitioned_packed_ops(mesh, batch, model.J)
-        out = model(batch, ops=ops)
-        loss = (((out[:, 0] - batch.y) ** 2 * batch.gmask).sum()
-                / batch.gmask.sum())
-        spmd.backward(loss, mesh.grid, params)
+        with runtime.deterministic() as refused:
+            ops = spmd.partitioned_packed_ops(mesh, batch, model.J)
+            out = model(batch, ops=ops)
+            loss = (((out[:, 0] - batch.y) ** 2 * batch.gmask).sum()
+                    / batch.gmask.sum())
+            spmd.backward(loss, mesh.grid, params)
+        if refused:
+            raise RuntimeError(f"psum_fallback: ops without a deterministic "
+                               f"form: {refused}")
         opt.step()
         sched.step()
         return {"loss": loss.detach()}
