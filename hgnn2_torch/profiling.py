@@ -1,7 +1,8 @@
 """Profiling and roofline accounting (counterpart of
 hgnn2_tpu/profiling.py): a step timer that waits for the device, edges/s
 and bytes/edge accounting for aggregation passes, the card's data-sheet
-peaks, and a torch.profiler trace context.
+peaks, a torch.profiler trace context, and the port's host spans
+(span, spans), which record only while a torch.profiler session does.
 """
 
 from __future__ import annotations
@@ -10,10 +11,123 @@ import contextlib
 import dataclasses
 import os
 import tempfile
+import threading
 import time
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
+
+# ------------------------------------------------------------------ spans
+
+SPAN_LIMIT = 65_536  # records a profiled session keeps; later ones are dropped
+
+_autograd_profiler = torch.autograd.profiler
+_OFF = contextlib.nullcontext()
+
+
+class SpanRecord(NamedTuple):
+    """One span of a profiled session: its name, its start and end on
+    time.perf_counter_ns's clock (end None while it is open) and the index
+    of the span it opened in (None at the top)."""
+
+    name: str
+    start_ns: int
+    end_ns: int | None
+    parent: int | None
+
+
+class _Session:
+    """The records of one profiled session, SPAN_LIMIT at most, and the
+    count of spans dropped past it."""
+
+    def __init__(self):
+        self.records: list[list] = []
+        self.dropped = 0
+
+
+_session = _Session()
+_open = threading.local()  # each thread's open spans: (session, index)
+_watching = False
+
+
+def _watch_profiler_starts() -> None:
+    """Start a new session of records at each profiler start, by wrapping
+    the hook that every torch.profiler start calls; installed once, at the
+    first span that records (the first session's records start empty)."""
+    global _watching
+    _watching = True
+    start = _autograd_profiler._run_on_profiler_start
+    if getattr(start, "hgnn2_spans", False):
+        return
+
+    def run_on_profiler_start():
+        global _session
+        _session = _Session()
+        start()
+
+    run_on_profiler_start.hgnn2_spans = True
+    _autograd_profiler._run_on_profiler_start = run_on_profiler_start
+
+
+class _Span:
+    """A span while a profiler records: a CPU op on the profiler's own
+    timeline (_RecordFunctionFast, not a user annotation, so no row on the
+    device's) and a record of the session."""
+
+    __slots__ = ("name", "op", "session", "index")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        if not _watching:
+            _watch_profiler_starts()
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        session = self.session = _session
+        parent = stack[-1][1] if stack and stack[-1][0] is session else None
+        self.op = _RecordFunctionFast(self.name)
+        self.op.__enter__()
+        if len(session.records) < SPAN_LIMIT:
+            self.index = len(session.records)
+            session.records.append([self.name, time.perf_counter_ns(), None,
+                                    parent])
+        else:
+            self.index = None
+            session.dropped += 1
+        stack.append((session, self.index))
+        return self
+
+    def __exit__(self, *exc):
+        if self.index is not None:
+            self.session.records[self.index][2] = time.perf_counter_ns()
+        _open.stack.pop()
+        self.op.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """``with span(name):`` records the block as a host span while a
+    torch.profiler session records (profile.start() to stop()): a range
+    on the profiler's timeline, so a trace shows it beside the device's
+    work, and a record that spans() returns. Otherwise it costs one flag
+    read and a branch, and returns a shared null context."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _Span(name)
+    return _OFF
+
+
+def spans() -> list[SpanRecord]:
+    """The span records of the last profiled session (the one running,
+    if any), in the order the spans opened; clears nothing."""
+    return [SpanRecord(*r) for r in _session.records]
+
+
+def dropped_spans() -> int:
+    """Spans of the last profiled session not recorded past SPAN_LIMIT."""
+    return _session.dropped
 
 
 @dataclasses.dataclass
@@ -166,8 +280,9 @@ def trace(log_dir: str = os.path.join(tempfile.gettempdir(), "hgnn2_trace")):
     is a card); yields the profiler, whose key_averages() the caller reads
     after the block. The profiler stops and its chrome trace goes to
     log_dir/trace.json in a ``finally``, so a block that raises still
-    leaves its trace (the exception propagates). The default directory is
-    JAX's, /tmp/hgnn2_trace on Linux, outside the working tree."""
+    leaves its trace (the exception propagates); it holds the port's
+    hgnn2.* spans as CPU ops. The default directory is JAX's,
+    /tmp/hgnn2_trace on Linux, outside the working tree."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]

@@ -38,6 +38,12 @@ host's schedule fills between replays.
 
 fit trains through these programs; a capture that fails raises. The eager
 train_step, run_epoch and evaluate stay as library functions.
+
+While a torch.profiler session records, the host's part is in spans
+(profiling.span): hgnn2.epoch around run_epoch_scanned, hgnn2.fetch around
+its metrics fetch, hgnn2.scan around a group's run in _scanned,
+hgnn2.graph.replay around each replay (each body's run on the CPU) and
+hgnn2.schedule around the host's step between replays.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from hgnn2_torch import profiling
 from hgnn2_torch.parallel import spmd
 from hgnn2_torch.training import metrics as metrics_lib
 from hgnn2_torch.training import optim
@@ -276,12 +283,15 @@ class _Graphs:
 
     def __call__(self, key, body):
         """Run body: replay its graph (captured at the first call) on
-        CUDA, call it on the CPU. Returns its (static) outputs."""
+        CUDA, call it on the CPU, in the span hgnn2.graph.replay. Returns
+        its (static) outputs."""
         if not self.cuda:
-            return body()
+            with profiling.span("hgnn2.graph.replay"):
+                return body()
         self.capture(key, body)
         graph, out = self.graphs[key]
-        graph.replay()
+        with profiling.span("hgnn2.graph.replay"):
+            graph.replay()
         self.replays += 1
         return out
 
@@ -403,7 +413,8 @@ def _scanned(graphs: _Graphs, body, after_step=None):
     a batch of the stacked group, in ``order`` (a permutation of the
     group, default the stacked order): the sums and position are reset,
     the order sent to the device once, and body replayed (called on the
-    CPU) once a step, each followed by after_step() on the host."""
+    CPU) once a step, each followed by after_step() on the host (span
+    hgnn2.schedule); all but the capture in the span hgnn2.scan."""
     scans: dict = {}
 
     def run(stacked, order=None) -> _Scan:
@@ -415,18 +426,20 @@ def _scanned(graphs: _Graphs, body, after_step=None):
             body(scan)
 
         graphs.capture(id(stacked), step, scan.pos.zero_)
-        if order is not None:
-            src = torch.from_numpy(np.asarray(order, dtype=np.int64))
-            if scan.order.is_cuda:
-                src = src.pin_memory()
-            scan.order.copy_(src, non_blocking=scan.order.is_cuda)
-        scan.pos.zero_()
-        if scan.sums is not None:
-            torch._foreach_zero_(scan.sums)
-        for _ in range(scan.n):
-            graphs(id(stacked), step)
-            if after_step is not None:
-                after_step()
+        with profiling.span("hgnn2.scan"):
+            if order is not None:
+                src = torch.from_numpy(np.asarray(order, dtype=np.int64))
+                if scan.order.is_cuda:
+                    src = src.pin_memory()
+                scan.order.copy_(src, non_blocking=scan.order.is_cuda)
+            scan.pos.zero_()
+            if scan.sums is not None:
+                torch._foreach_zero_(scan.sums)
+            for _ in range(scan.n):
+                graphs(id(stacked), step)
+                if after_step is not None:
+                    with profiling.span("hgnn2.schedule"):
+                        after_step()
         return scan
 
     run.graphs = graphs
@@ -465,14 +478,17 @@ def run_epoch_scanned(groups: list, scan_fn, rng=None) -> dict[str, float]:
     (group_stacked_batches) through scan_fn (make_scanned_epoch), rng
     shuffling the group order and each group's batch order as JAX's does
     (rng=None keeps both). Metrics are means weighted by real-graph count,
-    fetched from the device once."""
+    fetched from the device once (span hgnn2.fetch: the host waits there
+    until the device has run the epoch; span hgnn2.epoch around it all)."""
     sums: dict = {}
-    for g, order in _epoch_order([_group_size(s) for s in groups], rng):
-        for k, v in scan_fn(groups[g], order).items():
-            sums[k] = v if k not in sums else sums[k] + v
-    if not sums:
-        return {}
-    values = dict(zip(sums, torch.stack(list(sums.values())).tolist()))
+    with profiling.span("hgnn2.epoch"):
+        for g, order in _epoch_order([_group_size(s) for s in groups], rng):
+            for k, v in scan_fn(groups[g], order).items():
+                sums[k] = v if k not in sums else sums[k] + v
+        if not sums:
+            return {}
+        with profiling.span("hgnn2.fetch"):
+            values = dict(zip(sums, torch.stack(list(sums.values())).tolist()))
     denom = max(values.pop("count"), 1.0)
     return {k: v / denom for k, v in values.items()}
 

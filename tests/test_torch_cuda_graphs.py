@@ -1,6 +1,7 @@
 """The CUDA graphs of hgnn2_torch.training.train against the eager steps,
 on the card (marked requires_cuda; each skips without a card). The file
-imports the port only, so it runs where JAX is not installed:
+imports the port (and the benchmark's kernel table) only, so it runs
+where JAX is not installed:
 
     python -m pytest tests/test_torch_cuda_graphs.py -q
 
@@ -11,7 +12,7 @@ captured BN recalibration against the eager one; make_multi_train_step
 against its steps one by one; Adam and SGD captured against eager;
 a fit whose optimizer is reset each epoch
 and whose checkpoint is restored, captured after both; one graph pool a
-model. GNNSimple's dense
+model; the port's hgnn2.* spans add no device row. GNNSimple's dense
 steps are expected bit-equal and held to rtol 1e-6; PackedGNN's and
 CCN1D's (K1 and K2) sum with index_add_'s atomics, whose order changes
 from run to run, and are held to 1e-4 of each value's scale."""
@@ -209,6 +210,52 @@ def test_a_models_graphs_share_one_pool(cuda):
     train.evaluate_scanned(groups, train.make_scanned_eval(
         other, "regression", mean, std))
     assert tuple(train._POOLS[other]) != tuple(pool)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("program", ["step", "epoch"])
+def test_spans_add_no_device_row(cuda, program, monkeypatch):
+    """A captured GNNSimple step (make_train_step) or scanned epoch,
+    replayed under torch.profiler with the port's hgnn2.* spans and again
+    with their gate patched off: no device event or kernel-table row is
+    named hgnn2.*, and the kernel table counts the same kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark import frozen
+    from hgnn2_torch import profiling
+
+    batches, model, mean, std = _setup("gnn", cuda)
+    opt, sched = optim.build_optimizer(OptimConfig(**OCFG), len(batches),
+                                       model.parameters())
+    if program == "step":
+        step = train.make_train_step(model, opt, sched, "regression", mean, std)
+        run = lambda: [step(batches[0]) for _ in range(3)]  # noqa: E731
+        replays = 3
+    else:
+        groups = train.group_stacked_batches(batches)
+        fn = train.make_scanned_epoch(model, opt, sched, "regression", mean, std)
+        run = lambda: train.run_epoch_scanned(groups, fn)  # noqa: E731
+        replays = len(batches)
+    run()  # the captures
+    torch.cuda.synchronize()
+
+    def kernels() -> int:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        cpu = torch.autograd.DeviceType.CPU
+        assert not [e.name for e in prof.events() if e.device_type != cpu
+                    and e.name.startswith("hgnn2.")]
+        rows = frozen.parse_kernel_stats(prof)
+        assert not [r for r in rows if r["op_name"].startswith("hgnn2.")]
+        return sum(r["occurrences"] for r in rows if r["category"] == "kernel")
+
+    on = kernels()
+    assert [s.name for s in profiling.spans()].count(
+        "hgnn2.graph.replay") == replays
+    monkeypatch.setattr(profiling, "span", lambda name: profiling._OFF)
+    assert kernels() == on > 0
 
 
 class _Fixed:
