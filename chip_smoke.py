@@ -23,7 +23,9 @@ Phases, each of which raises on failure (nothing is caught):
               ranks at the packed path's
               node blocks (V = 10,944, F = 1, 5, 16), at S = 4 with
               2^20 x 16 floats a rank, and on unaligned and odd-sized
-              buffers;
+              buffers; hold MaskedBatchNorm's two kernels (bn_forward,
+              bn_backward) against its composition of PyTorch ops at the
+              GNN cell's shapes and time them beside it and their bound;
   3. serving  save CCN2D(L=2, h=2) and CCN1D(L=20, h=2) bundles with random
               weights in flax layout (converted by hgnn2_torch.convert),
               load them on the card and predict 2,048 molecules; hold the
@@ -48,11 +50,12 @@ Phases, each of which raises on failure (nothing is caught):
               forward (one an all-reduce); host-clock and device ms per
               forward and molecules/s for the ring, the plain reduce and
               single-rank ops;
-  6. main     the main path, which runs no hand-written kernel: train
-              GNNSimple(L=15, h=1, J=1) through cli.common.run_experiment
-              on the card (20,480 synthetic molecules, 2,048 a step, 2
-              epochs, Adamax at lr 3e-4) from seeded flax-layout weights;
-              check finite losses, the first steps' losses, the step-0
+  6. main     the main path, whose hand-written kernels are the batch
+              norm's two: train GNNSimple(L=15, h=1, J=1) through
+              cli.common.run_experiment on the card (20,480 synthetic
+              molecules, 2,048 a step, 2 epochs, Adamax at lr 3e-4) from
+              seeded flax-layout weights; check the BN kernels' launches
+              (the batch norms times the train forwards), finite losses, the first steps' losses, the step-0
               gradients and BN running stats, and eval predictions on a
               valid batch against the CPU; the same batch through
               GNNSimple(L=3, h=2) with J=2, the GRU update and the
@@ -61,7 +64,7 @@ Phases, each of which raises on failure (nothing is caught):
               step (host clock, device split by CUDA events, the CUDA
               kernels of each part by torch.profiler, the card's busy
               share). Phase 4 prints the same for the CCN steps;
-  7. lggnn    the line-graph GNN, which runs no hand-written kernel either:
+  7. lggnn    the line-graph GNN, which runs the batch norm's kernels too:
               train GNNLineGraph(L=5, h=1, J=1, update order 2) through
               cli.common.run_experiment on the card (the same 20,480
               molecules, 2,048 a step, 2 epochs, Adamax at lr 3e-4) from
@@ -222,8 +225,10 @@ Phases, each of which raises on failure (nothing is caught):
 Phases 4 and 6-10 train through fit and phase 11 through fit_sharded,
 whose epochs replay CUDA graphs: a kernel wrapper's launch count moves
 when Python calls it (an eager step, a graph's warm-up runs and its
-capture), not when a graph replays the launch it recorded. Phases 4, 10
-and 11 hold the counts to the layers times the Python-level forwards;
+capture), not when a graph replays the launch it recorded. Phases 4, 6,
+10 and 11 hold the counts to the layers times the Python-level forwards,
+and every counted run holds the BN kernels' counts to the MaskedBatchNorm
+calls that take them (train mode, CUDA, float32, no pooled statistics);
 phases 4 and 10 print the replayed launches (replays times the kernels a
 graph holds) beside them.
 
@@ -409,9 +414,11 @@ def _ptxas_summary(log: str) -> list[str]:
         if m:
             k = re.search(r"(ccn[12]d_(?:for|back)ward)ILi(\d+)E", m.group(1))
             h = re.search(r"ring_allreduceILi(\d+)ELb(\d)E", m.group(1))
+            b = re.search(r"(bn_(?:for|back)ward)ILi(\d)ELb(\d)E", m.group(1))
             name = (f"{k.group(1)}<K={k.group(2)}>" if k else
                     f"ring_allreduce<S={h.group(1)},vec={h.group(2)}>" if h
-                    else "noop" if m.group(1).endswith("4noopEv")
+                    else f"{b.group(1)}<vec={b.group(2)},cached={b.group(3)}>"
+                    if b else "noop" if m.group(1).endswith("4noopEv")
                     else m.group(1))
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
@@ -681,6 +688,100 @@ def phase_kernels(dev) -> dict[str, dict]:
               f"prologue included, in {timed[('K4', C)]['ms']:.4f} ms")
     for key, C in (("K1", 5), ("K2", 2), ("K3", 5), ("K4", 2)):
         rows[key].update(timed[(key, C)])
+    rows.update(_bn_kernels(dev))
+    return rows
+
+
+BN_SHAPES = [(1024, 16, 2), (1024, 32, 2)]  # the GNN cell's two node buckets
+
+
+def _bn_launch(h: torch.Tensor) -> str:
+    """The instantiation csrc/bn_fused.cu launches for h (..., F) (h's
+    address standing for every row tensor's): VEC 2 where F is even and
+    the rows are 8-byte aligned, else 1; cached where the rows fit the
+    16 blocks' 16 register floats a thread and F / VEC one feature tile,
+    else looped."""
+    F = h.shape[-1]
+    R = h.numel() // F
+    vec = 2 if F % 2 == 0 and h.data_ptr() % 8 == 0 else 1
+    lanes, slots = F // vec, 1
+    while 2 * slots * lanes <= 256:
+        slots *= 2
+    cached = lanes <= 256 and -(-R // (16 * slots)) <= 16 // vec
+    return f"16 blocks of 256 threads, VEC={vec}, {'cached' if cached else 'looped'}"
+
+
+def _bn_kernels(dev) -> dict[str, dict]:
+    """MaskedBatchNorm's two kernels (ops/bn_fused.py) against the plain
+    composition at the GNN cell's shapes, 1,024 molecules of 16 and 32
+    node slots, F = 2, about 60 % of the slots real: the output, the
+    statistics and the gradients, then each kernel's time beside its byte
+    bound and the composition's (forward: its ops; backward: autograd's
+    through them). Returns the two rows of the kernels line, at the larger
+    shape."""
+    from hgnn2_torch.ops import bn_fused
+
+    gen = torch.Generator(dev).manual_seed(0)
+    src = "hgnn2_torch/ops/csrc/bn_fused.cu"
+    rows = {
+        "BN forward": dict(name="bn_forward", route="cuda", source=src,
+                           replaces="none (XLA fuses the batch norm)",
+                           max_abs_err=0.0, library_ms=None),
+        "BN backward": dict(name="bn_backward", route="cuda", source=src,
+                            replaces="none (XLA fuses the batch norm)",
+                            max_abs_err=0.0, library_ms=None),
+    }
+    for shape in BN_SHAPES:
+        F = shape[-1]
+        h = torch.randn(shape, device=dev, generator=gen) * 1.5 + 0.3
+        m = (torch.rand(shape[:-1], device=dev, generator=gen) < 0.6).float()
+        g = torch.randn(shape, device=dev, generator=gen)
+        scale = torch.randn(F, device=dev, generator=gen)
+        bias = torch.randn(F, device=dev, generator=gen)
+        rm, rs = torch.zeros(F, device=dev), torch.ones(F, device=dev)
+        launch = _bn_launch(h)
+        hp, sp, bp = (t.clone().requires_grad_() for t in (h, scale, bias))
+        plain, _ = bn_fused.composed(hp, m, sp, bp, rm.clone(), rs.clone(),
+                                     0.1, 1e-5, True)
+        want = torch.autograd.grad(plain, (hp, sp, bp), g, retain_graph=True)
+        hk, sk, bk = (t.clone().requires_grad_() for t in (h, scale, bias))
+        out = bn_fused.masked_batch_norm(hk, m, sk, bk, rm.clone(), rs.clone(),
+                                         0.1, 1e-5, True)
+        got = torch.autograd.grad(out, (hk, sk, bk), g)
+        torch.cuda.synchronize()
+        label = f"R={shape[0] * shape[1]} F={F}"
+        rows["BN forward"]["max_abs_err"] = max(
+            rows["BN forward"]["max_abs_err"],
+            _compare(f"BN forward {label} ({launch})", out.detach(), plain.detach()))
+        for name, a, b in zip(("g_h", "g_scale", "g_bias"), got, want):
+            _grad_check(f"BN backward {name} {label} ({launch})", a, b)
+            rows["BN backward"]["max_abs_err"] = max(
+                rows["BN backward"]["max_abs_err"], float((a - b).abs().max()))
+        _, stats = bn_fused.bn_forward(h, m, scale, bias, rm.clone(), rs.clone(),
+                                       0.1, 1e-5, True)
+        kf = lambda: bn_fused.bn_forward(h, m, scale, bias, rm, rs, 0.1, 1e-5, True)
+        kb = lambda: bn_fused.bn_backward(g, h, m, scale, stats, True)
+        pf = lambda: bn_fused.composed(h, m, scale, bias, rm, rs, 0.1, 1e-5, True)
+        pb = lambda: torch.autograd.grad(plain, (hp, sp, bp), g, retain_graph=True)
+        # each input read once, each output written once
+        fwd_bytes = _nbytes(h, m, scale, bias, rm, rs, h, stats, rm, rs)
+        bwd_bytes = _nbytes(g, h, m, scale, stats, h, scale, bias)
+        # the composition's 26 and 27 launches, autograd's from its engine
+        # thread, enqueue behind a longer spin than one kernel's
+        rows["BN forward"].update(
+            ms=_time_ms(kf), ms_in_run=_time_run_ms(kf),
+            plain_ms=_time_ms(pf, busy=10 * BUSY_CYCLES),
+            bound_ms=_bound(fwd_bytes, 0)[0], bound_by="bytes")
+        rows["BN backward"].update(
+            ms=_time_ms(kb), ms_in_run=_time_run_ms(kb),
+            plain_ms=_time_ms(pb, busy=10 * BUSY_CYCLES),
+            bound_ms=_bound(bwd_bytes, 0)[0], bound_by="bytes")
+        for key in ("BN forward", "BN backward"):
+            r = rows[key]
+            print(f"  {key} {r['name']} at {shape} ({label}): kernel "
+                  f"{r['ms']:.4f} ms, {r['ms_in_run']:.4f} ms in a run of "
+                  f"{RUN_LAUNCHES}, plain composition {r['plain_ms']:.4f} ms, "
+                  f"bound {r['bound_ms']:.5f} ms (bytes), library none")
     return rows
 
 
@@ -789,14 +890,77 @@ def _breakdown(sm, chunk) -> None:
           f"time (CUDA events)")
 
 
+K_KEYS = ("K1", "K2", "K3", "K4", "K5")
+BN_KEYS = ("BN forward", "BN backward")
+# the MaskedBatchNorm calls since _zero that must launch each BN kernel,
+# counted by a module hook that is on from _zero to _read
+_bn_calls = dict.fromkeys(BN_KEYS, 0)
+_bn_hook = []
+
+
+def _bn_seen(module, args) -> None:
+    """Counts a MaskedBatchNorm call that takes the kernels
+    (bn_fused.use_kernel on its compute dtype): one bn_forward, and one
+    bn_backward at its backward where it runs with grad on. A replayed
+    graph launches them with no Python call, and neither side counts it."""
+    from hgnn2_torch.nn import layers
+    from hgnn2_torch.ops import bn_fused
+
+    if not isinstance(module, layers.MaskedBatchNorm):
+        return
+    h = args[0]
+    if bn_fused.use_kernel(h.device, layers._at_least_f32(h.dtype),
+                           module.training, module.axis_name):
+        _bn_calls["BN forward"] += 1
+        _bn_calls["BN backward"] += torch.is_grad_enabled() and (
+            h.requires_grad or module.scale.requires_grad)
+
+
 def _counters() -> dict:
-    from hgnn2_torch.ops import ccn_fused, ring
+    """The kernel wrappers whose ``launches`` the phases count: K1-K5 and
+    MaskedBatchNorm's two kernels."""
+    from hgnn2_torch.ops import bn_fused, ccn_fused, ring
 
     return {"K1": ccn_fused.fused_contract_1d_forward,
             "K2": ccn_fused.fused_contract_1d_backward,
             "K3": ccn_fused.fused_contract_forward,
             "K4": ccn_fused.fused_contract_backward,
-            "K5": ring.ring_psum}
+            "K5": ring.ring_psum,
+            "BN forward": bn_fused.bn_forward,
+            "BN backward": bn_fused.bn_backward}
+
+
+def _zero(counters) -> None:
+    """Sets every launch count to 0, and starts counting the BN calls."""
+    for c in counters.values():
+        c.launches = 0
+    _bn_calls.update(dict.fromkeys(BN_KEYS, 0))
+    if not _bn_hook:
+        _bn_hook.append(
+            torch.nn.modules.module.register_module_forward_pre_hook(_bn_seen))
+
+
+def _read(counters) -> dict[str, int]:
+    """Every kernel's launches since _zero. Raises unless each BN kernel
+    launched once for each MaskedBatchNorm call that must launch it."""
+    got = {k: c.launches for k, c in counters.items()}
+    while _bn_hook:
+        _bn_hook.pop().remove()
+    if any(got[k] != _bn_calls[k] for k in BN_KEYS):
+        raise AssertionError(f"BN kernel launches {got} against MaskedBatchNorm"
+                             f" calls that take them {_bn_calls}")
+    return got
+
+
+def _want(counters) -> dict[str, int]:
+    """The launches of a path that runs none of K1-K5: each BN kernel's
+    count is that of the calls that take it (as _read checks)."""
+    return {k: _bn_calls.get(k, 0) for k in counters}
+
+
+def _ks(got: dict) -> dict[str, int]:
+    """The K1-K5 part of a launch count."""
+    return {k: got[k] for k in K_KEYS}
 
 
 def phase_serving(dev, card: str) -> dict[str, int]:
@@ -826,17 +990,16 @@ def phase_serving(dev, card: str) -> dict[str, int]:
             raise AssertionError(f"{name}: the bundle did not enable the kernels")
         sm.predict(requests[:8])  # first CUDA calls: library loads, cuBLAS
 
-        for c in counters.values():
-            c.launches = 0
+        _zero(counters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         preds = sm.predict(requests)  # the main path
         secs = time.perf_counter() - t0
-        got = {k: c.launches for k, c in counters.items()}
+        got = _read(counters)
         for k, n in got.items():
             launches[k] += n
 
-        want = {k: 0 for k in counters}
+        want = _want(counters)
         want[key] = n_layers * n_chunks
         print(f"  {name} L={n_layers} h=2: {N_REQUESTS} requests in {n_chunks} "
               f"chunks, {secs:.4f} s, {N_REQUESTS / secs:.1f} molecules/s on "
@@ -1099,19 +1262,18 @@ def phase_training(card: str) -> dict[str, int]:
         params = _flax_params(5, 2, n_layers, n_channels, seed)
         cfg = _train_cfg(arch, n_layers, "cuda",
                          os.path.join(OUT_DIR, f"train_{arch}"))
-        for c in counters.values():
-            c.launches = 0
+        _zero(counters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with _Runs(ccn.CCN1D, ccn.CCN2D) as runs:
             _, history = common.run_experiment(cfg, init_params=params)  # the main path
             torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        got = {k: c.launches for k, c in counters.items()}
+        got = _read(counters)
         for k, n in got.items():
             launches[k] += n
 
-        want = dict.fromkeys(counters, 0)
+        want = _want(counters)
         want[fwd] = n_layers * (runs.train + runs.eval)
         want[bwd] = (n_layers - 1) * runs.train
         replayed = {fwd: n_layers * (steps + eval_batches),
@@ -1245,16 +1407,15 @@ def phase_packed(dev, card: str, records) -> dict[str, int]:
         model = model_on(dev, state1).eval()
         with torch.no_grad():
             model(pb, ops=ring_ops())  # first calls: cuBLAS, allocator
-            for c in counters.values():
-                c.launches = 0
+            _zero(counters)
             torch.cuda.synchronize()
             ops = ring_ops()
             preds = model(pb, ops=ops)
             torch.cuda.synchronize()
-            got = {k: c.launches for k, c in counters.items()}
+            got = _read(counters)
             for k, n in got.items():
                 launches[k] += n
-            want = dict.fromkeys(counters, 0)
+            want = _want(counters)
             want["K5"] = n_allreduce  # one launch an all-reduce
             n_ar = ops.comm_bytes_per_step()["n_allreduce_fwd"]
             print(f"  {label} eval forward over {len(records)} molecules, "
@@ -1335,10 +1496,11 @@ def _forward_errs(got: tuple, want: tuple) -> tuple[float, float, float]:
 def phase_main(dev, card: str) -> dict[str, int]:
     """Train GNNSimple(L=15, h=1, J=1) through run_experiment on the card
     (``dev``) and hold it to the CPU. Returns each kernel's launches in
-    that run (the path has none)."""
+    that run: the two BN kernels at each of the model's batch norms, at
+    each Python-level train forward and its backward, and none of K1-K5."""
     from hgnn2_torch.cli import common
     from hgnn2_torch.data import batching, synthetic
-    from hgnn2_torch.nn import models
+    from hgnn2_torch.nn import layers, models
     from hgnn2_torch.ops import dense
 
     records = _synthetic(N_MAIN_MOLS)  # as run_experiment's
@@ -1347,26 +1509,31 @@ def phase_main(dev, card: str) -> dict[str, int]:
     params = _flax_variables(common.build_model(cfg, "regression", F_in), 7)
     n_train = int(0.8 * N_MAIN_MOLS)
     counters = _counters()
-    for c in counters.values():
-        c.launches = 0
+    _zero(counters)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model, history = common.run_experiment(cfg, init_params=params)  # the main path
-    torch.cuda.synchronize()
+    with _Runs(models.GNNSimple) as runs:
+        model, history = common.run_experiment(cfg, init_params=params)  # the main path
+        torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = _read(counters)
     losses = [(row["train_loss"], row["valid_loss"], row["test_loss"])
               for row in history]
+    n_bn = sum(isinstance(m, layers.MaskedBatchNorm) for m in model.modules())
+    want = _want(counters)
+    want.update(dict.fromkeys(BN_KEYS, n_bn * runs.train))
     print(f"  GNNSimple L=15 h=1 J=1: run_experiment, {TRAIN_EPOCHS} epochs x "
           f"{n_train // MAIN_BS} steps of {MAIN_BS} molecules, {secs:.2f} s host "
           f"clock on {card} (data generation and batch builds included); "
-          f"(train, valid, test) loss per epoch {losses}; launches of K1-K5 "
-          f"{launches} (the path runs none)")
+          f"(train, valid, test) loss per epoch {losses}; launches {launches} "
+          f"(expected {want}: {n_bn} batch norms x {runs.train} Python-level "
+          f"train forwards, the warm-up runs and captures; {runs.replays} "
+          f"graph replays launch them besides)")
     if len(history) != TRAIN_EPOCHS or not all(
             np.isfinite(v) for row in history for v in row.values()):
         raise AssertionError(f"GNNSimple: training history not finite: {history}")
-    if any(launches.values()):
-        raise AssertionError(f"GNNSimple launched a CCN or ring kernel: {launches}")
+    if launches != want or not runs.train:
+        raise AssertionError(f"GNNSimple: launches {launches} != {want}")
 
     # with BN, a gradient below GRAD_FLOOR x the model's largest is a
     # difference of much larger per-node terms (the bias of cv1 or cv2 of
@@ -1448,7 +1615,8 @@ def phase_main(dev, card: str) -> dict[str, int]:
 def phase_lggnn(dev, card: str) -> dict[str, int]:
     """Train GNNLineGraph(L=5, h=1, J=1, order 2) through run_experiment on
     the card (``dev``) and hold it to the CPU. Returns each kernel's
-    launches in that run (the path has none)."""
+    launches in that run: the BN kernels at the node and edge batch
+    norms, none of K1-K5."""
     from hgnn2_torch.cli import common
     from hgnn2_torch.data import batching, synthetic
     from hgnn2_torch.nn import models
@@ -1462,27 +1630,26 @@ def phase_lggnn(dev, card: str) -> dict[str, int]:
     params = _flax_variables(common.build_model(cfg, "regression", F_in), 9)
     n_train = int(0.8 * N_MAIN_MOLS)
     counters = _counters()
-    for c in counters.values():
-        c.launches = 0
+    _zero(counters)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model, history = common.run_experiment(cfg, init_params=params)  # the main path
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = _read(counters)
     losses = [(row["train_loss"], row["valid_loss"], row["test_loss"])
               for row in history]
     print(f"  GNNLineGraph L=5 h=1 J=1 order 2: run_experiment, {TRAIN_EPOCHS} "
           f"epochs x {n_train // MAIN_BS} steps of {MAIN_BS} molecules, "
           f"{secs:.2f} s host clock on {card} (data generation, line graphs "
           f"and batch builds included); (train, valid, test) loss per epoch "
-          f"{losses}; launches of K1-K5 {launches} (the path runs none)")
+          f"{losses}; launches {launches} (K1-K5 none)")
     finite = all(np.isfinite(v) for row in history for v in row.values())
     if len(history) != TRAIN_EPOCHS or not finite:
         raise AssertionError(f"GNNLineGraph: training history not finite: {history}")
     if not isinstance(model, models.GNNLineGraph):
         raise AssertionError(f"run_experiment built a {type(model).__name__}")
-    if any(launches.values()):
+    if any(_ks(launches).values()) or not launches["BN forward"]:
         raise AssertionError(f"GNNLineGraph launched a CCN or ring kernel: {launches}")
 
     # as in phase 6: a cv1/cv2 bias that only shifts what BN subtracts has
@@ -1629,7 +1796,7 @@ def phase_packed_train(dev, card: str) -> dict[str, int]:
     order 2), through run_experiment with --packed on the card (``dev``)
     and hold each to the CPU; PackedGNN's run also writes checkpoints,
     restored on the CPU and resumed with --bn_recalib. Returns each
-    kernel's launches in the two runs (the path has none)."""
+    kernel's launches in the two runs: the BN kernels, none of K1-K5."""
     from hgnn2_torch.cli import common
     from hgnn2_torch.data import batching, synthetic
 
@@ -1650,14 +1817,13 @@ def phase_packed_train(dev, card: str) -> dict[str, int]:
             shutil.rmtree(cfg.checkpoint_path, ignore_errors=True)
         params = _flax_variables(
             common.build_packed_model(cfg, "regression", F_in), seed)
-        for c in counters.values():
-            c.launches = 0
+        _zero(counters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         model, history = common.run_experiment(cfg, init_params=params)  # the main path
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        got = {k: c.launches for k, c in counters.items()}
+        got = _read(counters)
         for k, n in got.items():
             launches[k] += n
         losses = [(row["train_loss"], row["valid_loss"], row["test_loss"])
@@ -1666,15 +1832,16 @@ def phase_packed_train(dev, card: str) -> dict[str, int]:
               f"{n_train // MAIN_BS} steps of {MAIN_BS} molecules, {secs:.2f} s "
               f"host clock on {card} (data generation and batch builds "
               f"included); (train, valid, test) loss per epoch {losses}; "
-              f"launches of K1-K5 {got} (the path runs none)")
+              f"launches {got} (K1-K5 none)")
         finite = all(np.isfinite(v) for row in history for v in row.values())
         if len(history) != TRAIN_EPOCHS or not finite:
             raise AssertionError(f"{name}: training history not finite: {history}")
         want_type = "PackedLGGNN" if model_kw else "PackedGNN"
         if type(model).__name__ != want_type:
             raise AssertionError(f"run_experiment built a {type(model).__name__}")
-        if any(got.values()):
-            raise AssertionError(f"{name} launched a CCN or ring kernel: {got}")
+        if any(_ks(got).values()) or not got["BN forward"]:
+            raise AssertionError(f"{name} launched a CCN or ring kernel, or "
+                                 f"no BN kernel: {got}")
 
         # as in phases 6 and 7: a bias that only shifts what BN subtracts
         # has a rounding-level gradient, held against GRAD_FLOOR x the max
@@ -1726,11 +1893,10 @@ def _counted(counters, totals, fn):
     """fn() with every launch counter set to 0 just before and read just
     after; the launches are added to totals and returned with fn's
     result."""
-    for c in counters.values():
-        c.launches = 0
+    _zero(counters)
     out = fn()
     torch.cuda.synchronize()
-    got = {k: c.launches for k, c in counters.items()}
+    got = _read(counters)
     for k, n in got.items():
         totals[k] += n
     return out, got
@@ -1864,12 +2030,12 @@ def phase_serve_files(dev, card: str, rates: dict | None = None
         if len(history) != 1 or not all(np.isfinite(v)
                                         for v in history[0].values()):
             raise AssertionError(f"{name}: training history {history}")
-        if key is None and any(got.values()):
+        if key is None and any(_ks(got).values()):
             raise AssertionError(f"{name} launched a CCN or ring kernel: {got}")
         if key is not None:
             pair = ("K1", "K2") if key == "K1" else ("K3", "K4")
             if not all(got[k] for k in pair) or any(
-                    n for k, n in got.items() if k not in pair):
+                    n for k, n in _ks(got).items() if k not in pair):
                 raise AssertionError(f"{name}: training launches {got}")
         with contextlib.redirect_stdout(io.StringIO()):  # the bundle's path
             _, got_export = _counted(counters, launches, lambda: export.main(
@@ -1885,7 +2051,7 @@ def phase_serve_files(dev, card: str, rates: dict | None = None
         n_chunks = len(list(serving._greedy_spans(
             np.array([[r.n_nodes] for r in requests]), (sm.buckets[0][1],),
             sm.buckets[0][0]))) if sm.kind == "ccn" else None
-        want = {k: 0 for k in counters}
+        want = _want(counters)
         if key is not None:
             want[key] = n_layers * n_chunks
         print(f"  {name}: trained 1 epoch in {train_s:.2f} s (host clock, "
@@ -2230,14 +2396,13 @@ def phase_captured(dev, card: str) -> dict[str, int]:
         rng = np.random.default_rng(0)
         hist_c, host_c = [], []
         with _Runs(*classes) as runs:
-            for c in counters.values():
-                c.launches = 0
+            _zero(counters)
             for _ in range(TRAIN_EPOCHS):
                 t0 = time.perf_counter()
                 hist_c.append(train.run_epoch_scanned(groups, scan_fn, rng))
                 host_c.append(time.perf_counter() - t0)
             torch.cuda.synchronize()
-            got = {k: c.launches for k, c in counters.items()}
+            got = _read(counters)
         for k, n in got.items():
             launches[k] += n
         graphs = scan_fn.graphs
@@ -2286,7 +2451,7 @@ def phase_captured(dev, card: str) -> dict[str, int]:
         # launches: Python-level at the warm-ups and captures, replays apart
         per_fwd = {"K1": n_layers, "K3": n_layers, "K2": n_layers - 1,
                    "K4": n_layers - 1}
-        want = dict.fromkeys(counters, 0)
+        want = _want(counters)
         for k in pair:
             want[k] = per_fwd[k] * (runs.train if k in ("K2", "K4")
                                     else runs.train + runs.eval)
@@ -2564,8 +2729,7 @@ def phase_sharded(dev, card: str) -> dict[str, int]:
         params = _sharded_params(cfg, seed, F_in)
         n_train = int(0.8 * len(records))
         steps = -(-n_train // cfg.batch_size)
-        for c in counters.values():
-            c.launches = 0
+        _zero(counters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with _Runs(ccn.CCN1D, ccn.CCN2D, packed.PackedGNN,
@@ -2573,10 +2737,10 @@ def phase_sharded(dev, card: str) -> dict[str, int]:
             model, history = common.run_experiment(cfg, init_params=params)  # the main path
             torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        got = {k: c.launches for k, c in counters.items()}
+        got = _read(counters)
         for k, n in got.items():
             launches[k] += n
-        want = dict.fromkeys(counters, 0)
+        want = _want(counters)
         if is_ccn:
             fwd, bwd = CCN_PAIRS[arch]
             L = cfg.model.n_layers
@@ -2776,16 +2940,15 @@ def phase_dp(dev, card: str) -> dict[str, int]:
         if params is None:
             params = _flax_variables(common.build_model(cfg, "regression",
                                                         F_in), 12)
-        for c in counters.values():
-            c.launches = 0
+        _zero(counters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with _Runs(models.GNNSimple) as runs:
             model, hist[dp] = common.run_experiment(cfg, init_params=params)  # the main path
             torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        for k, c in counters.items():
-            launches[k] += c.launches
+        for k, n in _read(counters).items():
+            launches[k] += n
         replays[dp] = runs.replays
         steps = -(-int(0.8 * N_MAIN_MOLS) // cfg.batch_size)
         print(f"  --dp {dp}: run_experiment, {TRAIN_EPOCHS} epochs x {steps} "
@@ -2873,8 +3036,7 @@ def phase_halo(dev, card: str) -> dict[str, int]:
     from hgnn2_torch.scripts import dryrun_multihost as dry
 
     counters = _counters()
-    for c in counters.values():
-        c.launches = 0
+    _zero(counters)
     t_phase = time.perf_counter()
     rec = dry.giant_record(HALO_NODES)
     node_cap, edge_cap = _packed_caps([rec])
@@ -2951,7 +3113,7 @@ def phase_halo(dev, card: str) -> dict[str, int]:
         del model, single, ops
     torch.cuda.empty_cache()
     print(f"  phase 13 took {time.perf_counter() - t_phase:.1f} s")
-    return {k: c.launches for k, c in counters.items()}
+    return _read(counters)
 
 
 # phase 14: scripts/exp_ccn_col.sh --k 2 at its widths, 4 steps an epoch
@@ -3052,8 +3214,7 @@ def phase_high_degree(dev, card: str) -> dict[str, int]:
     from hgnn2_torch.scripts import ccn_crossover
 
     counters = _counters()
-    for c in counters.values():
-        c.launches = 0
+    _zero(counters)
     t_phase = time.perf_counter()
     hist = {}
     for chunks in (1, COL_CHUNKS):
@@ -3129,8 +3290,8 @@ def phase_high_degree(dev, card: str) -> dict[str, int]:
     if scan["peak"] >= mat["peak"]:
         raise AssertionError("the scan path's peak memory is not below the "
                              "materialized path's")
-    launches = {k: c.launches for k, c in counters.items()}
-    if any(launches.values()):
+    launches = _read(counters)
+    if any(_ks(launches).values()):
         raise AssertionError(f"a kernel launched at K > 8: {launches}")
     del cb, paths, mat, scan
     torch.cuda.empty_cache()
@@ -3448,7 +3609,7 @@ def phase_harnesses(dev, card: str, serve9: dict) -> dict[str, int]:
                 or not PROFILE_BUSY[0] <= busy <= PROFILE_BUSY[1]):
             raise AssertionError(f"profile_lggnn {summary['layout']}: the "
                                  "trace misses the replayed graphs' kernels")
-        if any(got.values()):
+        if any(_ks(got).values()):
             raise AssertionError(f"profile_lggnn launched {got}")
     sweep, _ = counted(lambda: profile_lggnn.main(
         lg_argv + ["--sweep_h", "1", "4"]))
@@ -3485,7 +3646,7 @@ def phase_harnesses(dev, card: str, serve9: dict) -> dict[str, int]:
     for line in util.op_table("  top 15:", "", top, sum(
             r["total_time"] for r in rows), width=70)[4:]:
         print("   ", line)
-    if per_step <= PROFILE_MIN_PER_STEP or any(got.values()):
+    if per_step <= PROFILE_MIN_PER_STEP or any(_ks(got).values()):
         raise AssertionError(f"GNNSimple trace: {per_step} launches a step, "
                              f"{got}")
     del model, opt, sched, batches, stacked, scan_fn
@@ -3563,7 +3724,7 @@ def phase_harnesses(dev, card: str, serve9: dict) -> dict[str, int]:
             raise AssertionError(f"bench_serving launches {child}")
     runs["in this process"], got = counted(lambda: bench_serving.main(
         SERVING_ARGV + ["--out", os.path.join(out, "serving_here")]))
-    if not got["K3"] or any(n for k, n in got.items() if k != "K3"):
+    if not got["K3"] or any(n for k, n in _ks(got).items() if k != "K3"):
         raise AssertionError(f"bench_serving in this process launched {got}")
     for name, rows in runs["fresh"]["bundles"].items():
         print(f"    {name}: p50 " + ", ".join(
@@ -3592,7 +3753,7 @@ def phase_harnesses(dev, card: str, serve9: dict) -> dict[str, int]:
             raise AssertionError(f"packed_crossover: {r} (groups {want})")
         if r.get("uniform_caps") and r["scan_bucket_groups"] != 1:
             raise AssertionError(f"packed_crossover: {r}")
-    if any(got.values()):
+    if any(_ks(got).values()):
         raise AssertionError(f"packed_crossover launched {got}")
     torch.cuda.empty_cache()
     print(f"  phase 16 took {time.perf_counter() - t_phase:.1f} s")
@@ -3722,9 +3883,9 @@ def phase_quality(dev, card: str) -> dict[str, int]:
                     got["K1"] or got["K2"] or got["K5"]):
                 raise AssertionError(f"{name}: K = {rec['K']}, launches {got}")
         elif name == "validation_cls_ccn1d":
-            if rec["K"] <= ccn_fused.MAX_K or any(got.values()):
+            if rec["K"] <= ccn_fused.MAX_K or any(_ks(got).values()):
                 raise AssertionError(f"{name}: K = {rec['K']}, launches {got}")
-        elif any(got.values()):
+        elif any(_ks(got).values()):
             raise AssertionError(f"{name} launched {got}")
         if name in rv.RANGE_SPLIT:
             split = rec["range_split"]
@@ -3781,8 +3942,8 @@ def _nbytes_str(n) -> str:
 
 
 def _launch_rule(section: str, got: dict, want: set) -> None:
-    """Raises unless exactly the kernels in ``want`` launched."""
-    if any((n > 0) != (k in want) for k, n in got.items()):
+    """Raises unless exactly the kernels of K1-K5 in ``want`` launched."""
+    if any((n > 0) != (k in want) for k, n in _ks(got).items()):
         raise AssertionError(f"{section}: launches {got}, expected "
                              f"{sorted(want) or 'none'}")
 

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from hgnn2_torch.ops import bn_fused
 from hgnn2_torch.parallel import spmd
 
 
@@ -91,7 +92,10 @@ class MaskedBatchNorm(nn.Module):
     0.1. The running std starts at 1 (0 under compat). Parameters
     ``scale`` and ``bias`` (0-d under scalar_affine_bn) and buffers
     ``mean`` and ``std`` carry the flax names. Computes in float32 (float64
-    for a float64 input) and returns the input's dtype.
+    for a float64 input) and returns the input's dtype. In train mode on
+    CUDA in float32 with statistics of its own input, the forward and the
+    backward are one kernel each (ops/bn_fused.py); elsewhere the same
+    math runs as PyTorch ops (bn_fused.composed).
 
     axis_name (a mesh axis, "edge", or a tuple of them, ("data", "edge"))
     pools the statistics over every rank of those axes, as the JAX
@@ -123,24 +127,15 @@ class MaskedBatchNorm(nn.Module):
     def forward(self, h: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         in_dtype = h.dtype
         h = h.to(_at_least_f32(h.dtype))
-        m = mask.to(h.dtype)[..., None]
-        hm = h * m
-        if self.training:
-            axes = tuple(range(h.dim() - 1))
-            count = self._psum(m.sum()).clamp_min(1.0)
-            mean = self._psum(hm.sum(dim=axes)) / count
-            sq = self._psum((((hm - mean) * m) ** 2).sum(dim=axes))
-            std = torch.sqrt(self.eps + sq / count)
-            with torch.no_grad():
-                self.mean.copy_((1.0 - self.momentum) * mean
-                                + self.momentum * self.mean)
-                self.std.copy_((1.0 - self.momentum) * std
-                               + self.momentum * self.std)
+        m = mask.to(h.dtype)
+        args = (self.scale, self.bias, self.mean, self.std, self.momentum,
+                self.eps, self.compat.mask_bn_output)
+        if bn_fused.use_kernel(h.device, h.dtype, self.training,
+                               self.axis_name):
+            out = bn_fused.masked_batch_norm(h, m, *args)
         else:
-            mean, std = self.mean, self.std
-        out = self.scale * ((hm - mean) / std) + self.bias
-        if self.compat.mask_bn_output:
-            out = out * m
+            out, _ = bn_fused.composed(h, m, *args, training=self.training,
+                                       psum=self._psum)
         return out.to(in_dtype)
 
 
