@@ -15,7 +15,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from hgnn2_torch import operators, resolve_device
+from hgnn2_torch import operators, profiling, resolve_device
 
 
 @dataclasses.dataclass
@@ -139,7 +139,8 @@ def make_dense_batch(
     y = np.concatenate([y, np.zeros((B - bs,) + y.shape[1:], y.dtype)])
     arrays = dict(x=x, adj=adj, node_mask=node_mask, y=y, n_nodes=n_nodes)
     if with_line_graph:
-        arrays.update(_line_graph_arrays(records, B, m_max))
+        with profiling.span("hgnn2.lg.build"):
+            arrays.update(_line_graph_arrays(records, B, m_max))
     return DenseGraphBatch(
         **{k: torch.from_numpy(v).to(dev) for k, v in arrays.items()})
 

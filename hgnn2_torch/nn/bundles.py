@@ -22,7 +22,10 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from hgnn2_torch import profiling
 from hgnn2_torch.ops import dense as D
+
+EXCHANGE = "hgnn2.lg.exchange"
 
 
 @dataclasses.dataclass
@@ -47,7 +50,8 @@ class DenseBundle:
                    dtype: torch.dtype | None = None) -> "DenseBundle":
         """dtype casts the operator tensors (bf16 compute); the powers,
         degrees and NB degrees are computed in f32 first, then cast. The
-        reverse indices become int64 here, once per batch."""
+        reverse indices become int64 here, once per batch. The line-graph
+        part runs in the host span hgnn2.lg.bundle."""
         adj_powers = D.adjacency_powers(batch.adj, J)
         deg = D.degrees(batch.adj)
         if dtype is not None:
@@ -55,14 +59,15 @@ class DenseBundle:
         if not (with_line_graph and batch.has_line_graph):
             return cls(adj_powers=adj_powers, deg=deg, J=J,
                        node_mask=batch.node_mask)
-        s_src, s_dst = D.edge_scatter_matrices(
-            batch.lg_src, batch.lg_dst, batch.edge_mask, batch.x.shape[1])
-        rev = batch.lg_rev.long()
-        dl = D.nb_degrees(s_src, s_dst, batch.lg_w, rev) * batch.edge_mask
-        w = batch.lg_w
-        if dtype is not None:
-            s_src, s_dst = s_src.to(dtype), s_dst.to(dtype)
-            dl, w = dl.to(dtype), w.to(dtype)
+        with profiling.span("hgnn2.lg.bundle"):
+            s_src, s_dst = D.edge_scatter_matrices(
+                batch.lg_src, batch.lg_dst, batch.edge_mask, batch.x.shape[1])
+            rev = batch.lg_rev.long()
+            dl = D.nb_degrees(s_src, s_dst, batch.lg_w, rev) * batch.edge_mask
+            w = batch.lg_w
+            if dtype is not None:
+                s_src, s_dst = s_src.to(dtype), s_dst.to(dtype)
+                dl, w = dl.to(dtype), w.to(dtype)
         return cls(adj_powers=adj_powers, deg=deg, J=J,
                    node_mask=batch.node_mask, s_src=s_src, s_dst=s_dst, w=w,
                    rev=rev, dl=dl, edge_mask=batch.edge_mask)
@@ -74,21 +79,28 @@ class DenseBundle:
     def graph_op(self, x: torch.Tensor) -> torch.Tensor:
         return D.graph_op(self.adj_powers, self.deg, x, self.node_mask)
 
+    # the line-graph exchange, each apply in the host span hgnn2.lg.exchange
+
     def lg_graph_op(self, xl: torch.Tensor) -> torch.Tensor:
-        return D.lg_graph_op(self.s_src, self.s_dst, self.w, self.rev,
-                             self.dl, xl, self.J, self.edge_mask)
+        with profiling.span(EXCHANGE):
+            return D.lg_graph_op(self.s_src, self.s_dst, self.w, self.rev,
+                                 self.dl, xl, self.J, self.edge_mask)
 
     def pm(self, xl: torch.Tensor) -> torch.Tensor:
-        return D.incidence_apply(self.s_src, self.s_dst, xl, signed=False)
+        with profiling.span(EXCHANGE):
+            return D.incidence_apply(self.s_src, self.s_dst, xl, signed=False)
 
     def pd(self, xl: torch.Tensor) -> torch.Tensor:
-        return D.incidence_apply(self.s_src, self.s_dst, xl, signed=True)
+        with profiling.span(EXCHANGE):
+            return D.incidence_apply(self.s_src, self.s_dst, xl, signed=True)
 
     def pm_t(self, x: torch.Tensor) -> torch.Tensor:
-        return D.incidence_t_apply(self.s_src, self.s_dst, x, signed=False)
+        with profiling.span(EXCHANGE):
+            return D.incidence_t_apply(self.s_src, self.s_dst, x, signed=False)
 
     def pd_t(self, x: torch.Tensor) -> torch.Tensor:
-        return D.incidence_t_apply(self.s_src, self.s_dst, x, signed=True)
+        with profiling.span(EXCHANGE):
+            return D.incidence_t_apply(self.s_src, self.s_dst, x, signed=True)
 
     def edge_features(self) -> torch.Tensor:
         """Initial edge state XL = the NB line-graph degrees, (B, M, 1)."""

@@ -3,7 +3,7 @@ of scripts/profile_lggnn.py).
 
     python -m hgnn2_torch.scripts.profile_lggnn [--molecules 16384]
         [--batch_size 2048] [--h 1] [--packed | --fused]
-        [--sweep_h 1 4 16] [--device cuda|cpu] [--out DIR]
+        [--sweep_h 1 4 16] [--split] [--device cuda|cpu] [--out DIR]
 
 Trains GNNLineGraph (L=5, J=1, update order 2; the dense one-hot layout,
 ``--fused`` its FusedLGBundle form) or PackedLGGNN (``--packed``, the
@@ -24,11 +24,24 @@ and writes DIR/h_sweep_{layout}.json. DIR defaults to
 runs/profile_lggnn_torch; set-up (records, batches) is logged apart from
 the epochs. The harness runs on the card, or on the CPU with --device
 cpu (no card: it raises).
+
+``--split`` (dense layout) profiles eager train steps instead, 3 warm
+and 5 profiled at each shape group (node/edge buckets) of the loader's
+batches, and splits each group's device time a step into the kernels
+launched inside hgnn2.lg.exchange (the forward, and the backward as the
+autograd nodes whose sequence numbers are those of the forward ops
+inside it), inside hgnn2.lg.bundle, the batch norm's kernels
+(bn_forward and bn_backward by name) and the rest; with the host's
+hgnn2.lg.build seconds over the loader's batches (built under a CPU
+profiler, so its spans record). A replayed graph runs no host code, so
+only eager steps attribute device time to these spans. It writes
+DIR/split_dense_h{h}.json.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import sys
@@ -94,6 +107,112 @@ def timed_epochs(groups, scan_fn, epochs=3):
     return min(times), compile_s, mets
 
 
+def _device_us(e) -> float:
+    return float(getattr(e, "device_time_total", 0.0) or 0.0)
+
+
+def split(records, ts, h, bs, device=None, warm=3, steps=5) -> dict:
+    """The --split profile (module docstring): the eager step's device
+    time at each shape group, split by the hgnn2.lg.* spans."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = util.harness_device(device)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU]):
+        batches = list(batching.DenseLoader(records, bs, task=0,
+                                            with_line_graph=True, sort=True,
+                                            device=dev))
+        build_ns = sum(s.end_ns - s.start_ns for s in profiling.spans()
+                       if s.name == "hgnn2.lg.build")
+    loader_s = time.perf_counter() - t0
+    model = models.GNNLineGraph(
+        in_features=records[0].x.shape[1], n_features=h, n_layers=5, J=1,
+        order=2, generator=torch.Generator().manual_seed(0)).to(dev).train()
+    opt, _ = optim.build_optimizer(OptimConfig(optim="adamax", lr=3e-4),
+                                   len(batches), model.parameters())
+    mean, std = float(ts.mean[0]), float(ts.std[0])
+    groups = collections.Counter()
+    first = {}
+    for b in batches:
+        key = f"{b.x.shape[1]}/{b.lg_src.shape[1]}"
+        groups[key] += 1
+        first.setdefault(key, b)
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    cpu = torch.autograd.DeviceType.CPU
+    out = {"card": util.card(dev), "h": h, "molecules": len(records),
+           "batch_size": bs, "batches": len(batches), "loader_s": loader_s,
+           "lg_build_s": build_ns * 1e-9, "groups": {}}
+    for key, b in first.items():
+        for _ in range(warm):
+            train._train_body(model, opt, b, "regression", mean, std)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        with profile(activities=acts) as prof:
+            for _ in range(steps):
+                train._train_body(model, opt, b, "regression", mean, std)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        evs = prof.events()
+        # a user annotation's shadow on the device (Optimizer.step#...) is no work
+        notes = {e.name for e in evs if getattr(e, "is_user_annotation", False)}
+        rows = [e for e in prof.key_averages()
+                if e.device_type != cpu and e.key not in notes]
+        total = sum(float(e.self_device_time_total) for e in rows)
+        bn = sum(float(e.self_device_time_total) for e in rows
+                 if "bn_forward" in e.key or "bn_backward" in e.key)
+        launches = sum(e.count for e in rows
+                       if not e.key.startswith(("Memcpy", "Memset")))
+        span_us = collections.Counter()
+        span_n = collections.Counter()
+        seqs = set()
+
+        def walk(e):
+            sq = getattr(e, "sequence_nr", -1)
+            if sq is not None and sq >= 0:
+                seqs.add(sq)
+            for c in e.cpu_children:
+                walk(c)
+
+        for e in evs:
+            if e.device_type != cpu or e.name not in ("hgnn2.lg.exchange",
+                                                      "hgnn2.lg.bundle"):
+                continue
+            up = e.cpu_parent
+            while up is not None and up.name != e.name:
+                up = up.cpu_parent
+            if up is not None:  # nested in a span of its name: counted there
+                continue
+            span_us[e.name] += _device_us(e)
+            span_n[e.name] += 1
+            if e.name == "hgnn2.lg.exchange":
+                walk(e)
+        bwd = [e for e in evs if e.device_type == cpu
+               and e.name.startswith("autograd::engine::evaluate_function:")
+               and getattr(e, "sequence_nr", -1) in seqs]
+        g = {"steps": steps, "batches": groups[key],
+             "device_us_a_step": total / steps,
+             "launches_a_step": launches / steps,
+             "exchange_spans_a_step": span_n["hgnn2.lg.exchange"] / steps,
+             "exchange_fwd_us": span_us["hgnn2.lg.exchange"] / steps,
+             "exchange_bwd_us": sum(_device_us(e) for e in bwd) / steps,
+             "exchange_bwd_nodes": len(bwd) / steps,
+             "bundle_us": span_us["hgnn2.lg.bundle"] / steps,
+             "bn_us": bn / steps}
+        g["rest_us"] = (g["device_us_a_step"] - g["exchange_fwd_us"]
+                        - g["exchange_bwd_us"] - g["bundle_us"] - g["bn_us"])
+        out["groups"][key] = g
+        log(f"group {key} ({groups[key]} batches): device "
+            f"{g['device_us_a_step']:.1f} us a step, "
+            f"{g['launches_a_step']:.1f} launches; exchange fwd "
+            f"{g['exchange_fwd_us']:.1f} bwd {g['exchange_bwd_us']:.1f}; "
+            f"bundle {g['bundle_us']:.1f}; BN {g['bn_us']:.1f}; "
+            f"rest {g['rest_us']:.1f}")
+    log(f"loader {loader_s:.3f} s, hgnn2.lg.build {out['lg_build_s']:.3f} s "
+        f"over {len(batches)} batches")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--molecules", type=int, default=16384)
@@ -104,6 +223,9 @@ def main(argv=None):
                     help="dense layout with FusedLGBundle combined-operator"
                          " einsums")
     ap.add_argument("--sweep_h", type=int, nargs="*", default=None)
+    ap.add_argument("--split", action="store_true",
+                    help="eager steps' device time split by the hgnn2.lg.*"
+                         " spans (dense layout)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=os.path.join("runs",
                                                   "profile_lggnn_torch"))
@@ -120,6 +242,16 @@ def main(argv=None):
     layout = ("packed" if args.packed
               else "dense_fused" if args.fused else "dense")
     os.makedirs(args.out, exist_ok=True)
+
+    if args.split:
+        if args.packed or args.fused:
+            ap.error("--split profiles the dense layout only")
+        out = split(records, ts, args.h, args.batch_size, dev)
+        with open(os.path.join(args.out, f"split_dense_h{args.h}.json"),
+                  "w") as f:
+            json.dump(out, f, indent=2)
+        print(json.dumps(out))
+        return out
 
     if args.sweep_h:
         out = []

@@ -13,7 +13,10 @@ On the card (marked requires_cuda; each skips without a card): the kernels
 against the composition at the GNN cell's shapes (1,024 x 16 and 1,024 x
 32 rows of F = 2), looped and tiled shapes (F = 128, 1,030) and an odd F,
 with 0/1 and with soft masks, inside a captured and
-replayed CUDA graph, and through make_bn_recalibration; the module in
+replayed CUDA graph, and through make_bn_recalibration; one GNNLineGraph
+train step at the benchmark's line-graph cell's smallest and largest
+shape groups (2,048 molecules at node/edge buckets 16/32 and 32/64: its
+edge norms and the larger node norm take the looped kernels); the module in
 float64, in eval mode and with pooled statistics on the card, which
 launches neither kernel and gives the composition's bits. The file imports
 the port only, so it runs where JAX is not installed:
@@ -28,6 +31,8 @@ for bit. Statistics and outputs are held to FWD_RTOL, gradients, whose
 mean term is a difference of sums, to GRAD_RTOL, each times the largest
 |value| of the tensor compared.
 """
+
+import re
 
 import pytest
 import torch
@@ -383,3 +388,107 @@ def test_module_off_the_kernel_path_on_the_card(cuda, case):
     for got, w in ((out, want), (h.grad, hp.grad), (bn.scale.grad, sp.grad),
                    (bn.bias.grad, bp.grad), (bn.mean, rm), (bn.std, rs)):
         assert torch.equal(got.detach(), w.detach())
+
+
+# GNNLineGraph's smallest and largest shape groups in the benchmark's
+# lggnn_L5_h1.train_b2048 cell: 2,048 molecules a batch at node/edge
+# buckets 16/32 and 32/64 (its 32/32 group takes the looped kernels too)
+LG_GROUPS = {"n16_m32": (16, 32), "n32_m64": (32, 64)}
+LG_BATCH = 2048
+REGISTER_ROWS = 32768  # bn_fused.cu:fits_registers at F = 2 (VEC 2 or 1)
+_BN_KERNEL = re.compile(r"bn_(forward|backward)<\d,\s*(true|false)>")
+
+
+def _lg_model(cuda):
+    from hgnn2_torch.nn import models
+
+    return models.GNNLineGraph(in_features=5, n_features=1, n_layers=5, J=1,
+                               order=2,
+                               generator=torch.Generator().manual_seed(3)).to(cuda)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("group", list(LG_GROUPS))
+def test_lggnn_step_at_the_cells_shapes(cuda, group, monkeypatch):
+    """One GNNLineGraph (L 5, h 1, order 2) train step at the cell's
+    smallest and largest shape groups: each of its 8 MaskedBatchNorm
+    calls (a node and an edge norm a layer) launches bn_forward and
+    bn_backward once; a call of R >
+    32,768 rows takes the looped instantiation (``<VEC, false>`` in the
+    kernel's name), a smaller one the cached; each call's output and
+    running buffers match bn_fused.composed on its input, and the step's
+    gradients match the same step with every norm composed. The cv2
+    biases feed a train-mode norm, so their exact gradient is 0 and both
+    sides give rounding: held to 1e-5 of the largest gradient."""
+    from hgnn2_torch.data import batching, qm9
+
+    recs = sorted(qm9.synthetic_qm9_like(8192, seed=0), key=lambda r: r.n_nodes)
+    chunk = recs[:LG_BATCH] if group == "n16_m32" else recs[-LG_BATCH:]
+    batch = next(iter(batching.DenseLoader(chunk, LG_BATCH, task=0,
+                                           with_line_graph=True, device=cuda)))
+    n_b, m_b = batch.x.shape[1], batch.lg_src.shape[1]
+    assert (n_b, m_b) == LG_GROUPS[group]
+    g = torch.randn(LG_BATCH, 1, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(5))
+
+    def step(model):
+        model.zero_grad()
+        model(batch).backward(g)
+        torch.cuda.synchronize()
+        return {n: p.grad.clone() for n, p in model.named_parameters()}
+
+    model = _lg_model(cuda).train()
+    calls = []
+
+    def pre(mod, args):
+        calls.append([mod, args[0].detach().clone(), args[1].detach().clone(),
+                      mod.mean.clone(), mod.std.clone()])
+
+    def post(mod, args, out):
+        calls[-1].append(out.detach().clone())
+
+    norms = [m for m in model.modules() if isinstance(m, layers.MaskedBatchNorm)]
+    hooks = [h for m in norms for h in (m.register_forward_pre_hook(pre),
+                                        m.register_forward_hook(post))]
+    launches = bn_fused.bn_forward.launches, bn_fused.bn_backward.launches
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        grads = step(model)
+    for h in hooks:
+        h.remove()
+    assert len(norms) == len(calls) == 8
+    assert (bn_fused.bn_forward.launches - launches[0],
+            bn_fused.bn_backward.launches - launches[1]) == (8, 8)
+    rows = [c[1].numel() // c[1].shape[-1] for c in calls]
+    assert sorted(rows) == sorted([LG_BATCH * n_b] * 4 + [LG_BATCH * m_b] * 4)
+    want = {}
+    for r in rows:
+        looped = "false" if r > REGISTER_ROWS else "true"
+        for d in ("forward", "backward"):
+            want[(d, looped)] = want.get((d, looped), 0) + 1
+    seen = {}
+    for e in prof.key_averages():
+        k = _BN_KERNEL.search(e.key)
+        if k:
+            seen[k.groups()] = seen.get(k.groups(), 0) + e.count
+    assert seen == want, (seen, want)
+    for mod, h, m, rm, rs, out in calls:
+        rm_c, rs_c = rm.clone(), rs.clone()
+        ref, _ = bn_fused.composed(h, m, mod.scale, mod.bias, rm_c, rs_c,
+                                   mod.momentum, mod.eps, mod.compat.mask_bn_output)
+        _close("out", out, ref, FWD_RTOL)
+
+    composed = _lg_model(cuda).train()
+    monkeypatch.setattr(bn_fused, "use_kernel", lambda *a: False)
+    want_grads = step(composed)
+    for (name, a), b in zip(model.state_dict().items(),
+                            composed.state_dict().values()):
+        _close(name, a, b, FWD_RTOL)  # the running buffers after the step
+    top = max(float(v.abs().max()) for v in want_grads.values())
+    for name, got in grads.items():
+        if name.endswith("_cv2.bias"):
+            assert float(got.abs().max()) <= 1e-5 * top, name
+            assert float(want_grads[name].abs().max()) <= 1e-5 * top, name
+        else:
+            _close(name, got, want_grads[name], GRAD_RTOL)
