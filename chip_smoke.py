@@ -26,6 +26,12 @@ Phases, each of which raises on failure (nothing is caught):
               buffers; hold MaskedBatchNorm's two kernels (bn_forward,
               bn_backward) against its composition of PyTorch ops at the
               GNN cell's shapes and time them beside it and their bound;
+              hold the line-graph exchange's six kernels (Pm/Pd, Pm^T/Pd^T
+              and the NB apply, forward and backward) to their plain
+              versions on the CPU bit for bit and to the one-hot
+              composition at the line-graph cell's shapes (2,048
+              molecules, node/edge buckets 16/32 and 32/64), and time
+              them beside it and their bound;
   3. serving  save CCN2D(L=2, h=2) and CCN1D(L=20, h=2) bundles with random
               weights in flax layout (converted by hgnn2_torch.convert),
               load them on the card and predict 2,048 molecules; hold the
@@ -228,7 +234,9 @@ when Python calls it (an eager step, a graph's warm-up runs and its
 capture), not when a graph replays the launch it recorded. Phases 4, 6,
 10 and 11 hold the counts to the layers times the Python-level forwards,
 and every counted run holds the BN kernels' counts to the MaskedBatchNorm
-calls that take them (train mode, CUDA, float32, no pooled statistics);
+calls that take them (train mode, CUDA, float32, no pooled statistics)
+and the exchange's to the applies on index-form DenseBundles (CUDA,
+float32, no fused operators);
 phases 4 and 10 print the replayed launches (replays times the kernels a
 graph holds) beside them.
 
@@ -689,6 +697,7 @@ def phase_kernels(dev) -> dict[str, dict]:
     for key, C in (("K1", 5), ("K2", 2), ("K3", 5), ("K4", 2)):
         rows[key].update(timed[(key, C)])
     rows.update(_bn_kernels(dev))
+    rows.update(_lg_kernels(dev))
     return rows
 
 
@@ -782,6 +791,113 @@ def _bn_kernels(dev) -> dict[str, dict]:
                   f"{r['ms']:.4f} ms, {r['ms_in_run']:.4f} ms in a run of "
                   f"{RUN_LAUNCHES}, plain composition {r['plain_ms']:.4f} ms, "
                   f"bound {r['bound_ms']:.5f} ms (bytes), library none")
+    return rows
+
+
+# the line-graph cell's two shape groups (node/edge buckets), 2,048 molecules
+LG_SHAPES = [(16, 32), (32, 64)]
+LG_BATCH = 2048
+
+
+def _lg_kernels(dev) -> dict[str, dict]:
+    """The line-graph exchange's six kernels (ops/lg_exchange.py) at the
+    line-graph cell's shapes, 2,048 molecules at node/edge buckets 16/32
+    and 32/64, F = 2: each against its plain version on the CPU (bit for
+    bit) and against the one-hot composition of ops/dense.py on the card
+    (forward: its products; backward: autograd through them), then each
+    kernel's time beside its byte bound (indices and features once) and
+    the composition's. Returns the six rows of the kernels line, at the
+    larger shape, each with both shapes under ``shapes``."""
+    from hgnn2_torch import graphs
+    from hgnn2_torch.data import qm9
+    from hgnn2_torch.ops import dense as D
+    from hgnn2_torch.ops import lg_exchange as X
+
+    src_file = "hgnn2_torch/ops/csrc/lg_exchange.cu"
+    kernels = {"LG Pm|Pd": "lg_to_nodes<pair>", "LG Pm|Pd backward": "lg_to_edges<sum>",
+               "LG Pm^T|Pd^T": "lg_to_edges<pair>",
+               "LG Pm^T|Pd^T backward": "lg_to_nodes<sum>",
+               "LG NB": "lg_nb_forward (full)", "LG NB backward": "lg_nb_backward (full)"}
+    rows = {k: dict(name=v, route="cuda", source=src_file,
+                    replaces="none (XLA fuses the one-hot einsums)",
+                    max_abs_err=0.0, library_ms=None, shapes={})
+            for k, v in kernels.items()}
+    mols = qm9.synthetic_qm9_like(8 * LG_BATCH, seed=3)
+    gen = torch.Generator().manual_seed(0)
+    F = 2
+    for N, M in LG_SHAPES:
+        recs = [r for r in mols if r.n_nodes <= N and r.n_dir_edges <= M][:LG_BATCH]
+        db = graphs.make_dense_batch(recs, n_max=N, m_max=M, with_line_graph=True,
+                                     task=0, device=dev)
+        src, dst, rev, em, w = db.lg_src, db.lg_dst, db.lg_rev, db.edge_mask, db.lg_w
+        cpu = [t.cpu() for t in (src, dst, rev, em, w)]
+        s_src, s_dst = D.edge_scatter_matrices(src, dst, em, N)
+        rl = rev.long()
+        dl = X.nb_degrees(src, dst, rev, em, w, N)
+        dl_cpu = X.nb_degrees(*cpu, N)
+        B = src.shape[0]
+        xl = torch.randn(B, M, F, generator=gen).to(dev)
+        x = torch.randn(B, N, F, generator=gen).to(dev)
+        composed = {
+            "LG Pm|Pd": (xl, lambda t: torch.cat([D.incidence_apply(s_src, s_dst, t, False),
+                                                  D.incidence_apply(s_src, s_dst, t, True)], -1)),
+            "LG Pm^T|Pd^T": (x, lambda t: torch.cat(
+                [D.incidence_t_apply(s_src, s_dst, t, False),
+                 D.incidence_t_apply(s_src, s_dst, t, True)], -1)),
+            "LG NB": (xl, lambda t: D.lg_graph_op(s_src, s_dst, w, rl, dl, t, 1, em)),
+        }
+        index = {
+            "LG Pm|Pd": (lambda t: X.pm_pd_forward(src, dst, em, t, N),
+                         lambda g: X.pm_pd_backward(src, dst, em, g),
+                         lambda c, t: X.pm_pd_forward(*c[:2], c[3], t, N),
+                         lambda c, g: X.pm_pd_backward(*c[:2], c[3], g)),
+            "LG Pm^T|Pd^T": (lambda t: X.pm_pd_t_forward(src, dst, em, t),
+                             lambda g: X.pm_pd_t_backward(src, dst, em, g, N),
+                             lambda c, t: X.pm_pd_t_forward(*c[:2], c[3], t),
+                             lambda c, g: X.pm_pd_t_backward(*c[:2], c[3], g, N)),
+            "LG NB": (lambda t: X.nb_forward(src, dst, rev, em, w, t, N, dl),
+                      lambda g: X.nb_backward(src, dst, rev, em, w, g, N, dl),
+                      lambda c, t: X.nb_forward(*c, t, N, dl_cpu),
+                      lambda c, g: X.nb_backward(*c, g, N, dl_cpu)),
+        }
+        label = f"B={B} N={N} M={M} F={F}"
+        for key, (inp, comp) in composed.items():
+            fwd, bwd, fwd_cpu, bwd_cpu = index[key]
+            t = inp.clone().requires_grad_()
+            plain = comp(t)
+            g = torch.randn(plain.shape, generator=gen).to(dev)
+            (plain_g,) = torch.autograd.grad(plain, t, g, retain_graph=True)
+            out, grad = fwd(inp), bwd(g)
+            torch.cuda.synchronize()
+            bit = (torch.equal(out.cpu(), fwd_cpu(cpu, inp.cpu()))
+                   and torch.equal(grad.cpu(), bwd_cpu(cpu, g.cpu())))
+            print(f"  {key} and its backward at {label}: bit-equal to the plain "
+                  f"versions on the CPU {bit}")
+            if not bit:
+                raise AssertionError(f"{key}: the kernels differ from their plain versions")
+            bkey = f"{key} backward"
+            rows[key]["max_abs_err"] = max(rows[key]["max_abs_err"], _compare(
+                f"{key} {label} vs the composition", out, plain.detach()))
+            _grad_check(f"{bkey} {label} vs autograd through the composition",
+                        grad, plain_g)
+            rows[bkey]["max_abs_err"] = max(rows[bkey]["max_abs_err"],
+                                            float((grad - plain_g).abs().max()))
+            idx = (src, dst, em) if key != "LG NB" else (src, dst, rev, em, w, dl)
+            for k, fn, pf, nbytes in (
+                    (key, lambda: fwd(inp), lambda: comp(inp),
+                     _nbytes(*idx, inp, out)),
+                    (bkey, lambda: bwd(g),
+                     lambda: torch.autograd.grad(plain, t, g, retain_graph=True),
+                     _nbytes(*idx, g, grad))):
+                shape = dict(ms=_time_ms(fn), ms_in_run=_time_run_ms(fn),
+                             plain_ms=_time_ms(pf, busy=10 * BUSY_CYCLES),
+                             bound_ms=_bound(nbytes, 0)[0], bound_by="bytes")
+                rows[k]["shapes"][f"{N}/{M}"] = shape
+                rows[k].update(shape)
+                print(f"  {k} {rows[k]['name']} at {label}: kernel "
+                      f"{shape['ms']:.4f} ms, {shape['ms_in_run']:.4f} ms in a run "
+                      f"of {RUN_LAUNCHES}, composition {shape['plain_ms']:.4f} ms, "
+                      f"bound {shape['bound_ms']:.5f} ms (bytes), library none")
     return rows
 
 
@@ -892,10 +1008,21 @@ def _breakdown(sm, chunk) -> None:
 
 K_KEYS = ("K1", "K2", "K3", "K4", "K5")
 BN_KEYS = ("BN forward", "BN backward")
-# the MaskedBatchNorm calls since _zero that must launch each BN kernel,
-# counted by a module hook that is on from _zero to _read
-_bn_calls = dict.fromkeys(BN_KEYS, 0)
-_bn_hook = []
+# the line-graph exchange's kernels (ops/lg_exchange.py), by wrapper
+LG_WRAPPERS = {"LG Pm|Pd": "pm_pd_forward", "LG Pm|Pd backward": "pm_pd_backward",
+               "LG Pm^T|Pd^T": "pm_pd_t_forward",
+               "LG Pm^T|Pd^T backward": "pm_pd_t_backward",
+               "LG NB": "nb_forward", "LG NB backward": "nb_backward"}
+LG_KEYS = tuple(LG_WRAPPERS)
+# each DenseBundle exchange method's forward and backward kernel
+_LG_APPLIES = {"pm_pd": ("LG Pm|Pd", "LG Pm|Pd backward"),
+               "pm_pd_t": ("LG Pm^T|Pd^T", "LG Pm^T|Pd^T backward"),
+               "lg_graph_op": ("LG NB", "LG NB backward")}
+# the MaskedBatchNorm calls and the exchange's applies since _zero that
+# must launch each BN and exchange kernel, counted by hooks that are on
+# from _zero to _read
+_calls = dict.fromkeys(BN_KEYS + LG_KEYS, 0)
+_hooks = []
 
 
 def _bn_seen(module, args) -> None:
@@ -911,15 +1038,53 @@ def _bn_seen(module, args) -> None:
     h = args[0]
     if bn_fused.use_kernel(h.device, layers._at_least_f32(h.dtype),
                            module.training, module.axis_name):
-        _bn_calls["BN forward"] += 1
-        _bn_calls["BN backward"] += torch.is_grad_enabled() and (
+        _calls["BN forward"] += 1
+        _calls["BN backward"] += torch.is_grad_enabled() and (
             h.requires_grad or module.scale.requires_grad)
 
 
+def _lg_seen(name, apply):
+    """DenseBundle's exchange method ``name``, counting an apply on an
+    index-form bundle: one forward kernel (lg_graph_op: one NB apply for
+    each of AL, AL^2, AL^4 ..., 2^(J-1) in all), and as many backward
+    kernels where it runs with grad on an input that requires grad."""
+    def counted(bundle, t):
+        if bundle.index_form:
+            fwd, bwd = _LG_APPLIES[name]
+            n = 2 ** (bundle.J - 1) if name == "lg_graph_op" else 1
+            _calls[fwd] += n
+            _calls[bwd] += n * (torch.is_grad_enabled() and t.requires_grad)
+        return apply(bundle, t)
+    return counted
+
+
+def _install_hooks() -> None:
+    """The module hook of the batch norms, and DenseBundle's from_batch
+    (an index-form bundle's NB degrees: one NB apply) and exchange
+    methods wrapped to count; each undone by _read."""
+    from hgnn2_torch.nn.bundles import DenseBundle
+
+    _hooks.append(
+        torch.nn.modules.module.register_module_forward_pre_hook(_bn_seen).remove)
+    build = DenseBundle.__dict__["from_batch"]
+
+    def from_batch(cls, *a, **k):
+        b = build.__func__(cls, *a, **k)
+        _calls["LG NB"] += b.index_form
+        return b
+
+    patched = {"from_batch": classmethod(from_batch),
+               **{n: _lg_seen(n, getattr(DenseBundle, n)) for n in _LG_APPLIES}}
+    saved = {n: DenseBundle.__dict__[n] for n in patched}
+    for n, fn in patched.items():
+        setattr(DenseBundle, n, fn)
+    _hooks.append(lambda: [setattr(DenseBundle, n, fn) for n, fn in saved.items()])
+
+
 def _counters() -> dict:
-    """The kernel wrappers whose ``launches`` the phases count: K1-K5 and
-    MaskedBatchNorm's two kernels."""
-    from hgnn2_torch.ops import bn_fused, ccn_fused, ring
+    """The kernel wrappers whose ``launches`` the phases count: K1-K5,
+    MaskedBatchNorm's two kernels and the line-graph exchange's six."""
+    from hgnn2_torch.ops import bn_fused, ccn_fused, lg_exchange, ring
 
     return {"K1": ccn_fused.fused_contract_1d_forward,
             "K2": ccn_fused.fused_contract_1d_backward,
@@ -927,35 +1092,39 @@ def _counters() -> dict:
             "K4": ccn_fused.fused_contract_backward,
             "K5": ring.ring_psum,
             "BN forward": bn_fused.bn_forward,
-            "BN backward": bn_fused.bn_backward}
+            "BN backward": bn_fused.bn_backward,
+            **{k: getattr(lg_exchange, w) for k, w in LG_WRAPPERS.items()}}
 
 
 def _zero(counters) -> None:
-    """Sets every launch count to 0, and starts counting the BN calls."""
+    """Sets every launch count to 0, and starts counting the BN calls and
+    the exchange's applies."""
     for c in counters.values():
         c.launches = 0
-    _bn_calls.update(dict.fromkeys(BN_KEYS, 0))
-    if not _bn_hook:
-        _bn_hook.append(
-            torch.nn.modules.module.register_module_forward_pre_hook(_bn_seen))
+    _calls.update(dict.fromkeys(_calls, 0))
+    if not _hooks:
+        _install_hooks()
 
 
 def _read(counters) -> dict[str, int]:
-    """Every kernel's launches since _zero. Raises unless each BN kernel
-    launched once for each MaskedBatchNorm call that must launch it."""
+    """Every kernel's launches since _zero. Raises unless each BN and
+    exchange kernel launched once for each call or apply that must launch
+    it."""
     got = {k: c.launches for k, c in counters.items()}
-    while _bn_hook:
-        _bn_hook.pop().remove()
-    if any(got[k] != _bn_calls[k] for k in BN_KEYS):
-        raise AssertionError(f"BN kernel launches {got} against MaskedBatchNorm"
-                             f" calls that take them {_bn_calls}")
+    while _hooks:
+        _hooks.pop()()
+    if any(got[k] != _calls[k] for k in _calls):
+        raise AssertionError(f"BN and exchange kernel launches {got} against the"
+                             f" MaskedBatchNorm calls and exchange applies that"
+                             f" take them {_calls}")
     return got
 
 
 def _want(counters) -> dict[str, int]:
-    """The launches of a path that runs none of K1-K5: each BN kernel's
-    count is that of the calls that take it (as _read checks)."""
-    return {k: _bn_calls.get(k, 0) for k in counters}
+    """The launches of a path that runs none of K1-K5: each BN and
+    exchange kernel's count is that of the calls that take it (as _read
+    checks)."""
+    return {k: _calls.get(k, 0) for k in counters}
 
 
 def _ks(got: dict) -> dict[str, int]:
@@ -1616,7 +1785,7 @@ def phase_lggnn(dev, card: str) -> dict[str, int]:
     """Train GNNLineGraph(L=5, h=1, J=1, order 2) through run_experiment on
     the card (``dev``) and hold it to the CPU. Returns each kernel's
     launches in that run: the BN kernels at the node and edge batch
-    norms, none of K1-K5."""
+    norms, the exchange's six at its applies, none of K1-K5."""
     from hgnn2_torch.cli import common
     from hgnn2_torch.data import batching, synthetic
     from hgnn2_torch.nn import models
@@ -1649,8 +1818,10 @@ def phase_lggnn(dev, card: str) -> dict[str, int]:
         raise AssertionError(f"GNNLineGraph: training history not finite: {history}")
     if not isinstance(model, models.GNNLineGraph):
         raise AssertionError(f"run_experiment built a {type(model).__name__}")
-    if any(_ks(launches).values()) or not launches["BN forward"]:
-        raise AssertionError(f"GNNLineGraph launched a CCN or ring kernel: {launches}")
+    if (any(_ks(launches).values()) or not launches["BN forward"]
+            or not all(launches[k] for k in LG_KEYS)):
+        raise AssertionError(f"GNNLineGraph launched a CCN or ring kernel, or "
+                             f"missed a BN or exchange kernel: {launches}")
 
     # as in phase 6: a cv1/cv2 bias that only shifts what BN subtracts has
     # a rounding-level gradient, held against GRAD_FLOOR x the model's max

@@ -3,10 +3,12 @@ applies to its features for one batch.
 
   * DenseBundle: the production path. It holds a DenseGraphBatch's
     adjacency powers, degrees and node mask and, for the line-graph GNN,
-    the edge scatter matrices, weights, reverse indices and NB degrees;
-    every apply is a batched matmul, and the non-backtracking operator
-    goes through a gather (ops/dense.py). The model builds it once per
-    forward.
+    the edge arrays and NB degrees. The power operators are a batched
+    matmul (ops/dense.py). The line-graph exchange runs in index form on
+    CUDA in float32 (ops/lg_exchange.py's kernels: gathers and segment
+    sums over src, dst and rev); elsewhere it is the composition of
+    products with one-hot scatter matrices and a gather (ops/dense.py).
+    The model builds it once per forward.
   * FusedLGBundle: each line-graph update's whole operator input as ONE
     batched matmul against a (B, J+4, rows, N+M) tensor built per batch
     (GNNLineGraph(fused_ops=True)); the same math.
@@ -24,6 +26,7 @@ import torch.nn.functional as F
 
 from hgnn2_torch import profiling
 from hgnn2_torch.ops import dense as D
+from hgnn2_torch.ops import lg_exchange as X
 
 EXCHANGE = "hgnn2.lg.exchange"
 
@@ -31,27 +34,36 @@ EXCHANGE = "hgnn2.lg.exchange"
 @dataclasses.dataclass
 class DenseBundle:
     """Operator bundle computed from a dense batch's adjacency and edge
-    arrays."""
+    arrays. The line-graph exchange takes the index-form kernels where
+    ``src`` is set (CUDA, float32), else the one-hot scatter matrices
+    ``s_src`` and ``s_dst``."""
 
     adj_powers: torch.Tensor  # (B, J, N, N)
     deg: torch.Tensor  # (B, N)
     J: int
     node_mask: torch.Tensor | None = None  # (B, N)
     # line-graph pieces (None for power-GNN batches)
-    s_src: torch.Tensor | None = None  # (B, N, M)
+    src: torch.Tensor | None = None  # (B, M) int32, index form only
+    dst: torch.Tensor | None = None
+    s_src: torch.Tensor | None = None  # (B, N, M), composition only
     s_dst: torch.Tensor | None = None
     w: torch.Tensor | None = None  # (B, M)
-    rev: torch.Tensor | None = None  # (B, M) int64, for torch.gather
+    rev: torch.Tensor | None = None  # (B, M): int32 index form, int64 composition
     dl: torch.Tensor | None = None  # (B, M) NB degrees
     edge_mask: torch.Tensor | None = None
 
     @classmethod
     def from_batch(cls, batch, J: int, with_line_graph: bool = False,
-                   dtype: torch.dtype | None = None) -> "DenseBundle":
+                   dtype: torch.dtype | None = None,
+                   one_hot: bool = False) -> "DenseBundle":
         """dtype casts the operator tensors (bf16 compute); the powers,
-        degrees and NB degrees are computed in f32 first, then cast. The
-        reverse indices become int64 here, once per batch. The line-graph
-        part runs in the host span hgnn2.lg.bundle."""
+        degrees and NB degrees are computed in f32 first, then cast. On
+        CUDA in float32 the line graph keeps the batch's int32 src, dst
+        and rev for the index-form kernels, and dl is one kernel; else,
+        or with one_hot (FusedLGBundle's operand), it builds the one-hot
+        scatter matrices and the reverse indices become int64, once per
+        batch. The line-graph part runs in the host span
+        hgnn2.lg.bundle."""
         adj_powers = D.adjacency_powers(batch.adj, J)
         deg = D.degrees(batch.adj)
         if dtype is not None:
@@ -60,21 +72,33 @@ class DenseBundle:
             return cls(adj_powers=adj_powers, deg=deg, J=J,
                        node_mask=batch.node_mask)
         with profiling.span("hgnn2.lg.bundle"):
+            w, emask, n_nodes = batch.lg_w, batch.edge_mask, batch.x.shape[1]
+            if (not one_hot and dtype in (None, w.dtype)
+                    and X.use_kernel(w.device, w.dtype)):
+                src, dst, rev = batch.lg_src, batch.lg_dst, batch.lg_rev
+                return cls(adj_powers=adj_powers, deg=deg, J=J,
+                           node_mask=batch.node_mask, src=src, dst=dst, w=w,
+                           rev=rev, edge_mask=emask,
+                           dl=X.nb_degrees(src, dst, rev, emask, w, n_nodes))
             s_src, s_dst = D.edge_scatter_matrices(
-                batch.lg_src, batch.lg_dst, batch.edge_mask, batch.x.shape[1])
+                batch.lg_src, batch.lg_dst, emask, n_nodes)
             rev = batch.lg_rev.long()
-            dl = D.nb_degrees(s_src, s_dst, batch.lg_w, rev) * batch.edge_mask
-            w = batch.lg_w
+            dl = D.nb_degrees(s_src, s_dst, w, rev) * emask
             if dtype is not None:
                 s_src, s_dst = s_src.to(dtype), s_dst.to(dtype)
                 dl, w = dl.to(dtype), w.to(dtype)
         return cls(adj_powers=adj_powers, deg=deg, J=J,
                    node_mask=batch.node_mask, s_src=s_src, s_dst=s_dst, w=w,
-                   rev=rev, dl=dl, edge_mask=batch.edge_mask)
+                   rev=rev, dl=dl, edge_mask=emask)
 
     @property
     def has_line_graph(self) -> bool:
-        return self.s_src is not None
+        return self.w is not None
+
+    @property
+    def index_form(self) -> bool:
+        """Whether the exchange takes the index-form kernels."""
+        return self.src is not None
 
     def graph_op(self, x: torch.Tensor) -> torch.Tensor:
         return D.graph_op(self.adj_powers, self.deg, x, self.node_mask)
@@ -83,24 +107,33 @@ class DenseBundle:
 
     def lg_graph_op(self, xl: torch.Tensor) -> torch.Tensor:
         with profiling.span(EXCHANGE):
+            if self.index_form:
+                return X.lg_graph_op(self.src, self.dst, self.rev,
+                                     self.edge_mask, self.w, self.dl, xl,
+                                     self.J, self.deg.shape[1])
             return D.lg_graph_op(self.s_src, self.s_dst, self.w, self.rev,
                                  self.dl, xl, self.J, self.edge_mask)
 
-    def pm(self, xl: torch.Tensor) -> torch.Tensor:
+    def pm_pd(self, xl: torch.Tensor) -> torch.Tensor:
+        """[Pm xl | Pd xl]: (B, M, F) -> (B, N, 2F)."""
         with profiling.span(EXCHANGE):
-            return D.incidence_apply(self.s_src, self.s_dst, xl, signed=False)
+            if self.index_form:
+                return X.pm_pd(self.src, self.dst, self.edge_mask, xl,
+                               self.deg.shape[1])
+            return torch.cat([
+                D.incidence_apply(self.s_src, self.s_dst, xl, signed=False),
+                D.incidence_apply(self.s_src, self.s_dst, xl, signed=True)],
+                dim=-1)
 
-    def pd(self, xl: torch.Tensor) -> torch.Tensor:
+    def pm_pd_t(self, x: torch.Tensor) -> torch.Tensor:
+        """[Pm^T x | Pd^T x]: (B, N, F) -> (B, M, 2F)."""
         with profiling.span(EXCHANGE):
-            return D.incidence_apply(self.s_src, self.s_dst, xl, signed=True)
-
-    def pm_t(self, x: torch.Tensor) -> torch.Tensor:
-        with profiling.span(EXCHANGE):
-            return D.incidence_t_apply(self.s_src, self.s_dst, x, signed=False)
-
-    def pd_t(self, x: torch.Tensor) -> torch.Tensor:
-        with profiling.span(EXCHANGE):
-            return D.incidence_t_apply(self.s_src, self.s_dst, x, signed=True)
+            if self.index_form:
+                return X.pm_pd_t(self.src, self.dst, self.edge_mask, x)
+            return torch.cat([
+                D.incidence_t_apply(self.s_src, self.s_dst, x, signed=False),
+                D.incidence_t_apply(self.s_src, self.s_dst, x, signed=True)],
+                dim=-1)
 
     def edge_features(self) -> torch.Tensor:
         """Initial edge state XL = the NB line-graph degrees, (B, M, 1)."""
@@ -217,17 +250,13 @@ class MaterializedBundle:
     def lg_graph_op(self, xl: torch.Tensor) -> torch.Tensor:
         return D.graph_op_materialized(self.WL, xl)
 
-    def pm(self, xl: torch.Tensor) -> torch.Tensor:
-        return torch.einsum("bnm,bmf->bnf", self.Pm, xl)
+    def pm_pd(self, xl: torch.Tensor) -> torch.Tensor:
+        return torch.cat([torch.einsum("bnm,bmf->bnf", self.Pm, xl),
+                          torch.einsum("bnm,bmf->bnf", self.Pd, xl)], dim=-1)
 
-    def pd(self, xl: torch.Tensor) -> torch.Tensor:
-        return torch.einsum("bnm,bmf->bnf", self.Pd, xl)
-
-    def pm_t(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.einsum("bnm,bnf->bmf", self.Pm, x)
-
-    def pd_t(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.einsum("bnm,bnf->bmf", self.Pd, x)
+    def pm_pd_t(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.cat([torch.einsum("bnm,bnf->bmf", self.Pm, x),
+                          torch.einsum("bnm,bnf->bmf", self.Pd, x)], dim=-1)
 
     def edge_features(self) -> torch.Tensor:
         dl = torch.diagonal(self.WL[:, :, :, 1], dim1=1, dim2=2)

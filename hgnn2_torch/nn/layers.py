@@ -279,16 +279,14 @@ class LGLayer(nn.Module):
             if fb is not None:
                 x1 = fb.node_input(x, edge_state)
             else:
-                x1 = torch.cat([xa, bundle.pm(edge_state),
-                                bundle.pd(edge_state)], dim=-1)
+                x1 = torch.cat([xa, bundle.pm_pd(edge_state)], dim=-1)
             return self._pair("node_", x1, mask)
 
         def edge_update(node_state):
             if fb is not None:
                 xd1 = fb.edge_input(node_state, xl)
             else:
-                xd1 = torch.cat([xda, bundle.pm_t(node_state),
-                                 bundle.pd_t(node_state)], dim=-1)
+                xd1 = torch.cat([xda, bundle.pm_pd_t(node_state)], dim=-1)
             return self._pair("edge_", xd1, edge_mask)
 
         if self.order == 1:
@@ -321,8 +319,7 @@ class LGReadoutLayer(nn.Module):
         if fused_bundle is not None:
             x1 = fused_bundle.node_input(x, xl)
         else:
-            x1 = torch.cat([bundle.graph_op(x), bundle.pm(xl), bundle.pd(xl)],
-                           dim=-1)
+            x1 = torch.cat([bundle.graph_op(x), bundle.pm_pd(xl)], dim=-1)
         y = _dense(self.fc, x1, self.dtype)
         if self.compat.mask_readout_bias:
             y = y * mask[..., None]

@@ -99,7 +99,8 @@ class GNNLineGraph(nn.Module):
         DenseBundle (a MaterializedBundle in the tests)."""
         if bundle is None:
             bundle = DenseBundle.from_batch(batch, self.J, with_line_graph=True,
-                                            dtype=self.dtype)
+                                            dtype=self.dtype,
+                                            one_hot=self.fused_ops)
         fb = FusedLGBundle.from_dense(bundle) if self.fused_ops else None
         x, mask = batch.x, batch.node_mask
         if self.dtype is not None:

@@ -67,8 +67,9 @@ the steps) as DIR/{phase}_{process}.pt; --weights DIR starts each
 phase's model from DIR/{phase}.pt (a state_dict; the new phases:
 DIR/{phase}_{arch}.pt) in place of its seeded init. control() runs a
 phase on the global data in one process, for comparisons. On a card the
-parent builds the ring kernel before it starts the children, which load
-it and never run nvcc (HGNN2_PREBUILT).
+parent builds the ring kernel and the line-graph exchange's before it
+starts the children, which load them and never run nvcc
+(HGNN2_PREBUILT).
 
 --device cuda (the default) --backend gloo puts every process on the
 one card (NCCL refuses two ranks on one device); --backend nccl gives
@@ -834,10 +835,14 @@ def parent(args) -> dict:
         port = s.getsockname()[1]
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-    if args.device != "cpu" and "ring" in args.phases:
+    # the children only load the kernels: ring's, and the line-graph
+    # exchange's for phase dp's GNNLineGraph
+    libs = [lib for lib, phase in (("ring", "ring"), ("lg_exchange", "dp"))
+            if phase in args.phases]
+    if args.device != "cpu" and libs:
         from hgnn2_torch.ops import cuda_build
 
-        cuda_build.build_all(["ring"])  # the children only load it
+        cuda_build.build_all(libs)
     env = dict(os.environ, OMP_NUM_THREADS="1", HGNN2_PREBUILT="1",
                PYTHONPATH=os.pathsep.join(
                    [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))

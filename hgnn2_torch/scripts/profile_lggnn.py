@@ -5,8 +5,9 @@ of scripts/profile_lggnn.py).
         [--batch_size 2048] [--h 1] [--packed | --fused]
         [--sweep_h 1 4 16] [--split] [--device cuda|cpu] [--out DIR]
 
-Trains GNNLineGraph (L=5, J=1, update order 2; the dense one-hot layout,
-``--fused`` its FusedLGBundle form) or PackedLGGNN (``--packed``, the
+Trains GNNLineGraph (L=5, J=1, update order 2; the dense layout, whose
+exchange takes the index-form kernels on the card, ``--fused`` its
+FusedLGBundle form) or PackedLGGNN (``--packed``, the
 segment-sum layout) on synthetic QM9-shaped molecules through the
 shipped pipeline: DenseLoader(with_line_graph=True) or PackedLoader
 under CachedLoader(shuffle=False), Adamax at lr 3e-4,

@@ -208,10 +208,10 @@ def test_fused_bundle_matches_unfused_and_jax(lg_batch, rng):
         x = torch.from_numpy(rng.standard_normal((B, N, fx)).astype(np.float32))
         xl = torch.from_numpy(rng.standard_normal((B, M, fl)).astype(np.float32))
         node = fb.node_input(x, xl)
-        _close(node, torch.cat([b.graph_op(x), b.pm(xl), b.pd(xl)], -1))
+        _close(node, torch.cat([b.graph_op(x), b.pm_pd(xl)], -1))
         _close(node, jfb.node_input(x.numpy(), xl.numpy()))
         edge = fb.edge_input(x, xl)
-        _close(edge, torch.cat([b.lg_graph_op(xl), b.pm_t(x), b.pd_t(x)], -1))
+        _close(edge, torch.cat([b.lg_graph_op(xl), b.pm_pd_t(x)], -1))
         _close(edge, jfb.edge_input(x.numpy(), xl.numpy()))
 
 
@@ -244,9 +244,8 @@ def test_materialized_bundle_matches_dense_bundle(rng, J):
     xl = torch.from_numpy(rng.standard_normal((10, 64, 3)).astype(np.float32))
     nmask, emask = db.node_mask[..., None], db.edge_mask[..., None]
     x, xl = x * nmask, xl * emask  # states are zero at padding in the oracle
-    for name, arg, rows in (("graph_op", x, nmask), ("pm", xl, nmask),
-                            ("pd", xl, nmask), ("lg_graph_op", xl, emask),
-                            ("pm_t", x, emask), ("pd_t", x, emask)):
+    for name, arg, rows in (("graph_op", x, nmask), ("pm_pd", xl, nmask),
+                            ("lg_graph_op", xl, emask), ("pm_pd_t", x, emask)):
         got = getattr(b, name)(arg) * rows
         np.testing.assert_allclose(got.numpy(), getattr(mb, name)(arg).numpy(),
                                    atol=1e-5, rtol=1e-5, err_msg=name)

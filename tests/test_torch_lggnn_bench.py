@@ -431,8 +431,8 @@ def _forward_on(mols, cfg):
 
 def test_lg_spans_record_under_a_profiler(fresh):
     """One hgnn2.lg.build a batch built, one hgnn2.lg.bundle a forward, and
-    one hgnn2.lg.exchange an operator apply: five a layer (lg_graph_op,
-    Pm^T, Pd^T, Pm, Pd) and two in the readout; each a CPU op of the
+    one hgnn2.lg.exchange an operator apply: three a layer (lg_graph_op,
+    [Pm^T | Pd^T], [Pm | Pd]) and one in the readout; each a CPU op of the
     profiler."""
     cfg = _cfg()
     mols = frozen.synthetic_qm9_like(24, SEED)
@@ -442,7 +442,7 @@ def test_lg_spans_record_under_a_profiler(fresh):
     layers = cfg["L"] - 1
     assert {n: names.count(n) for n in LG_SPANS} == {
         "hgnn2.lg.build": 1, "hgnn2.lg.bundle": 1,
-        "hgnn2.lg.exchange": 5 * layers + 2}
+        "hgnn2.lg.exchange": 3 * layers + 1}
     ops = [e.name for e in prof.events() if e.name in LG_SPANS]
     assert sorted(ops) == sorted(n for n in names if n in LG_SPANS)
 
@@ -463,7 +463,7 @@ def test_lg_spans_cost_a_flag_read_without_a_profiler(fresh, monkeypatch):
 
 def test_profile_lggnn_split_on_the_cpu(tmp_path):
     """profile_lggnn --split: one row a shape group of the loader's batches,
-    the forward's 22 exchange spans a step (five a layer, two in the
+    the forward's 13 exchange spans a step (three a layer, one in the
     readout) and their backward nodes found, the host's line-graph build
     timed; the CPU has no device time to split. It refuses the packed and
     fused layouts."""
@@ -479,7 +479,7 @@ def test_profile_lggnn_split_on_the_cpu(tmp_path):
     for key, g in out["groups"].items():
         n, m = map(int, key.split("/"))
         assert n in work.NODE_BUCKETS and m in work.EDGE_BUCKETS
-        assert g["exchange_spans_a_step"] == 5 * (_cfg()["L"] - 1) + 2
+        assert g["exchange_spans_a_step"] == 3 * (_cfg()["L"] - 1) + 1
         assert g["exchange_bwd_nodes"] > 0
         assert g["device_us_a_step"] == g["rest_us"] == 0.0
     for layout in ("--packed", "--fused"):
