@@ -78,8 +78,8 @@ Phases, each of which raises on failure (nothing is caught):
               steps' losses, the step-0 gradients and the node and edge
               BN running stats, and eval predictions on a valid batch
               against the CPU; GNNLineGraph(L=3, h=2, J=2) with update
-              orders 1 and 3, fused_ops and the reference compat flags on
-              that batch, card vs CPU and fused vs unfused on the card;
+              orders 1 and 3 and the reference compat flags on that
+              batch, card vs CPU;
               bf16 lg_graph_op against f32 (the L=5 model's bf16
               deviation is printed); time a step as phase 6 does;
   8. packed   packed training (--packed), which runs no hand-written
@@ -356,9 +356,8 @@ def _noop_launch(blocks: int = 1, threads: int = 32):
 
     from hgnn2_torch.ops import cuda_build
 
-    fn = cuda_build.load("ccn_fused").hgnn2_noop
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = cuda_build.entry("ccn_fused", "hgnn2_noop",
+                          [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch():
@@ -1043,13 +1042,22 @@ def _bn_seen(module, args) -> None:
             h.requires_grad or module.scale.requires_grad)
 
 
+def _on_kernel(bundle) -> bool:
+    """Whether the bundle's exchange launches the kernels
+    (lg_exchange.use_kernel on its compute dtype)."""
+    from hgnn2_torch.ops import lg_exchange
+
+    return lg_exchange.use_kernel(bundle.w.device, bundle.w.dtype)
+
+
 def _lg_seen(name, apply):
-    """DenseBundle's exchange method ``name``, counting an apply on an
-    index-form bundle: one forward kernel (lg_graph_op: one NB apply for
-    each of AL, AL^2, AL^4 ..., 2^(J-1) in all), and as many backward
-    kernels where it runs with grad on an input that requires grad."""
+    """DenseBundle's exchange method ``name``, counting an apply on a
+    bundle whose exchange takes the kernels: one forward kernel
+    (lg_graph_op: one NB apply for each of AL, AL^2, AL^4 ..., 2^(J-1) in
+    all), and as many backward kernels where it runs with grad on an
+    input that requires grad."""
     def counted(bundle, t):
-        if bundle.index_form:
+        if _on_kernel(bundle):
             fwd, bwd = _LG_APPLIES[name]
             n = 2 ** (bundle.J - 1) if name == "lg_graph_op" else 1
             _calls[fwd] += n
@@ -1060,7 +1068,7 @@ def _lg_seen(name, apply):
 
 def _install_hooks() -> None:
     """The module hook of the batch norms, and DenseBundle's from_batch
-    (an index-form bundle's NB degrees: one NB apply) and exchange
+    (the NB degrees of a bundle on the kernels: one NB apply) and exchange
     methods wrapped to count; each undone by _read."""
     from hgnn2_torch.nn.bundles import DenseBundle
 
@@ -1070,7 +1078,7 @@ def _install_hooks() -> None:
 
     def from_batch(cls, *a, **k):
         b = build.__func__(cls, *a, **k)
-        _calls["LG NB"] += b.index_form
+        _calls["LG NB"] += b.has_line_graph and _on_kernel(b)
         return b
 
     patched = {"from_batch": classmethod(from_batch),
@@ -1844,25 +1852,20 @@ def phase_lggnn(dev, card: str) -> dict[str, int]:
     if err > SERVE_RTOL:
         raise AssertionError("GNNLineGraph: card and CPU eval predictions disagree")
 
-    # the other update orders, J=2, the fused operators and the reference
-    # compat flags on the same batch, forward only
+    # the other update orders, J=2 and the reference compat flags on the
+    # same batch, forward only
     for order in (1, 3):
-        def build(fused):
+        def build():
             return models.GNNLineGraph(
                 in_features=F_in, n_features=2, n_layers=3, J=2, order=order,
-                compat=CompatConfig.reference(), fused_ops=fused)
-        vparams = _flax_variables(build(False), 10 + order)
-        card_fused = _forwards(build(True), vparams, vb)
-        cpu_fused = _forwards(build(True), vparams, vb_cpu)
-        card_plain = _forwards(build(False), vparams, vb)
-        errs = _forward_errs(card_fused, cpu_fused) + _forward_errs(card_fused,
-                                                                    card_plain)
-        print(f"  GNNLineGraph L=3 h=2 J=2 order {order} fused_ops compat="
-              f"reference on that batch: card vs CPU train-mode forward max "
-              f"err / max |pred| {errs[0]:.3e}, BN running stats {errs[1]:.3e}, "
-              f"eval forward {errs[2]:.3e}; fused vs unfused on the card "
-              f"{errs[3]:.3e}, {errs[4]:.3e}, {errs[5]:.3e} (tolerance "
-              f"{SERVE_RTOL})")
+                compat=CompatConfig.reference())
+        vparams = _flax_variables(build(), 10 + order)
+        errs = _forward_errs(_forwards(build(), vparams, vb),
+                             _forwards(build(), vparams, vb_cpu))
+        print(f"  GNNLineGraph L=3 h=2 J=2 order {order} compat=reference on "
+              f"that batch: card vs CPU train-mode forward max err / max "
+              f"|pred| {errs[0]:.3e}, BN running stats {errs[1]:.3e}, eval "
+              f"forward {errs[2]:.3e} (tolerance {SERVE_RTOL})")
         if max(errs) > SERVE_RTOL:
             raise AssertionError(f"GNNLineGraph order {order}: forwards disagree")
 

@@ -268,25 +268,17 @@ class LGLayer(nn.Module):
         return getattr(self, f"{prefix}bn")(z, mask)
 
     def forward(self, bundle, x: torch.Tensor, xl: torch.Tensor,
-                mask: torch.Tensor, edge_mask: torch.Tensor,
-                fused_bundle=None) -> tuple[torch.Tensor, torch.Tensor]:
-        fb = fused_bundle
-        if fb is None:
-            xa = bundle.graph_op(x)
-            xda = bundle.lg_graph_op(xl)
+                mask: torch.Tensor, edge_mask: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        xa = bundle.graph_op(x)
+        xda = bundle.lg_graph_op(xl)
 
         def node_update(edge_state):
-            if fb is not None:
-                x1 = fb.node_input(x, edge_state)
-            else:
-                x1 = torch.cat([xa, bundle.pm_pd(edge_state)], dim=-1)
+            x1 = torch.cat([xa, bundle.pm_pd(edge_state)], dim=-1)
             return self._pair("node_", x1, mask)
 
         def edge_update(node_state):
-            if fb is not None:
-                xd1 = fb.edge_input(node_state, xl)
-            else:
-                xd1 = torch.cat([xda, bundle.pm_pd_t(node_state)], dim=-1)
+            xd1 = torch.cat([xda, bundle.pm_pd_t(node_state)], dim=-1)
             return self._pair("edge_", xd1, edge_mask)
 
         if self.order == 1:
@@ -315,11 +307,8 @@ class LGReadoutLayer(nn.Module):
         self.fc = ref_linear(fan_in, features_out, generator)
 
     def forward(self, bundle, x: torch.Tensor, xl: torch.Tensor,
-                mask: torch.Tensor, fused_bundle=None) -> torch.Tensor:
-        if fused_bundle is not None:
-            x1 = fused_bundle.node_input(x, xl)
-        else:
-            x1 = torch.cat([bundle.graph_op(x), bundle.pm_pd(xl)], dim=-1)
+                mask: torch.Tensor) -> torch.Tensor:
+        x1 = torch.cat([bundle.graph_op(x), bundle.pm_pd(xl)], dim=-1)
         y = _dense(self.fc, x1, self.dtype)
         if self.compat.mask_readout_bias:
             y = y * mask[..., None]

@@ -19,7 +19,7 @@ from torch import nn
 
 from hgnn2_torch.graphs import DenseGraphBatch
 from hgnn2_torch.nn import layers
-from hgnn2_torch.nn.bundles import DenseBundle, FusedLGBundle
+from hgnn2_torch.nn.bundles import DenseBundle
 from hgnn2_torch.nn.layers import CompatConfig
 
 
@@ -68,20 +68,19 @@ class GNNLineGraph(nn.Module):
     first, 3: simultaneous). in_features is the node feature width; the
     edge state starts as the NB degrees (width 1). dtype=torch.bfloat16
     computes in bf16 while the parameters, the BN statistics and the
-    readout sum stay f32. fused_ops builds a FusedLGBundle per batch and
-    runs each update's operators as one matmul (the same math)."""
+    readout sum stay f32."""
 
     def __init__(self, in_features: int, n_features: int, n_layers: int,
                  dim_output: int = 1, J: int = 1, order: int = 1,
                  compat: CompatConfig = CompatConfig(),
-                 dtype: torch.dtype | None = None, fused_ops: bool = False,
+                 dtype: torch.dtype | None = None,
                  bn_axis: str | tuple[str, ...] | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.in_features, self.n_features = in_features, n_features
         self.n_layers, self.dim_output = n_layers, dim_output
         self.J, self.order, self.compat = J, order, compat
-        self.dtype, self.fused_ops = dtype, fused_ops
+        self.dtype = dtype
         # layer0 is built even at n_layers = 1, as the flax model builds it
         self.n_lg_layers = max(n_layers - 1, 1)
         xw, xlw = in_features, 1
@@ -99,9 +98,7 @@ class GNNLineGraph(nn.Module):
         DenseBundle (a MaterializedBundle in the tests)."""
         if bundle is None:
             bundle = DenseBundle.from_batch(batch, self.J, with_line_graph=True,
-                                            dtype=self.dtype,
-                                            one_hot=self.fused_ops)
-        fb = FusedLGBundle.from_dense(bundle) if self.fused_ops else None
+                                            dtype=self.dtype)
         x, mask = batch.x, batch.node_mask
         if self.dtype is not None:
             x = x.to(self.dtype)
@@ -111,6 +108,5 @@ class GNNLineGraph(nn.Module):
                                    device=x.device)
         xl = bundle.edge_features().to(x.dtype)
         for i in range(self.n_lg_layers):
-            x, xl = getattr(self, f"layer{i}")(bundle, x, xl, mask, edge_mask,
-                                               fused_bundle=fb)
-        return self.layerlast(bundle, x, xl, mask, fused_bundle=fb)
+            x, xl = getattr(self, f"layer{i}")(bundle, x, xl, mask, edge_mask)
+        return self.layerlast(bundle, x, xl, mask)

@@ -27,12 +27,12 @@ import torch
 
 from hgnn2_torch.ops import cuda_build
 
+# the kernels' C entries in csrc/bn_fused.cu: (name, argtypes), for
+# cuda_build.entry
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = {
-    "hgnn2_bn_init": [],
-    "hgnn2_bn_forward": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P],
-    "hgnn2_bn_backward": [_P] * 8 + [_I] * 4 + [_P],
-}
+_INIT = ("hgnn2_bn_init", [])
+_FORWARD = ("hgnn2_bn_forward", [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P])
+_BACKWARD = ("hgnn2_bn_backward", [_P] * 8 + [_I] * 4 + [_P])
 
 
 def _same(x: torch.Tensor) -> torch.Tensor:
@@ -110,16 +110,12 @@ def backward_reference(g: torch.Tensor, h: torch.Tensor, m: torch.Tensor,
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("bn_fused")
-    for name, args in _ARGTYPES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
-    err = lib.hgnn2_bn_init()
-    if err:
-        raise RuntimeError(f"hgnn2_bn_init failed: CUDA error {err}")
-    return lib
+def _init(device: torch.device) -> None:
+    """The library's hgnn2_bn_init, once a device, before its first
+    launch there."""
+    with torch.cuda.device(device):
+        cuda_build.check(cuda_build.entry("bn_fused", *_INIT)(),
+                         "hgnn2_bn_init")
 
 
 def _check(h: torch.Tensor, m: torch.Tensor, scale: torch.Tensor,
@@ -156,14 +152,6 @@ def _check(h: torch.Tensor, m: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"unsupported device {h.device}")
 
 
-def _launch(name: str, h: torch.Tensor, *args) -> None:
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = getattr(_lib(), name)(*args, stream)
-    if err:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-
-
 def bn_forward(h: torch.Tensor, m: torch.Tensor, scale: torch.Tensor,
                bias: torch.Tensor, run_mean: torch.Tensor,
                run_std: torch.Tensor, momentum: float, eps: float,
@@ -181,10 +169,13 @@ def bn_forward(h: torch.Tensor, m: torch.Tensor, scale: torch.Tensor,
         return out, torch.cat([mean, std, count.reshape(1)])
     out = torch.empty_like(h)
     stats = torch.empty(2 * F + 1, dtype=h.dtype, device=h.device)
-    _launch("hgnn2_bn_forward", h, h.data_ptr(), m.data_ptr(), scale.data_ptr(),
-            bias.data_ptr(), out.data_ptr(), stats.data_ptr(),
-            run_mean.data_ptr(), run_std.data_ptr(), h.numel() // F, F,
-            int(scale.dim() == 0), int(mask_out), eps, 1.0 - momentum, momentum)
+    _init(h.device)
+    cuda_build.launch(cuda_build.entry("bn_fused", *_FORWARD), h.device,
+                      h.data_ptr(), m.data_ptr(), scale.data_ptr(),
+                      bias.data_ptr(), out.data_ptr(), stats.data_ptr(),
+                      run_mean.data_ptr(), run_std.data_ptr(), h.numel() // F,
+                      F, int(scale.dim() == 0), int(mask_out), eps,
+                      1.0 - momentum, momentum)
     bn_forward.launches += 1
     return out, stats
 
@@ -205,10 +196,12 @@ def bn_backward(g: torch.Tensor, h: torch.Tensor, m: torch.Tensor,
                                   stats[2 * F], mask_out)
     g_h = torch.empty_like(h)
     g_scale, g_bias = torch.empty_like(scale), torch.empty_like(scale)
-    _launch("hgnn2_bn_backward", h, g.data_ptr(), h.data_ptr(), m.data_ptr(),
-            scale.data_ptr(), stats.data_ptr(), g_h.data_ptr(),
-            g_scale.data_ptr(), g_bias.data_ptr(), h.numel() // F, F,
-            int(scale.dim() == 0), int(mask_out))
+    _init(h.device)
+    cuda_build.launch(cuda_build.entry("bn_fused", *_BACKWARD), h.device,
+                      g.data_ptr(), h.data_ptr(), m.data_ptr(),
+                      scale.data_ptr(), stats.data_ptr(), g_h.data_ptr(),
+                      g_scale.data_ptr(), g_bias.data_ptr(), h.numel() // F,
+                      F, int(scale.dim() == 0), int(mask_out))
     bn_backward.launches += 1
     return g_h, g_scale, g_bias
 

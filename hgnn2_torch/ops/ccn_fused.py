@@ -28,7 +28,6 @@ its own readout alone. Differentiable callers use the autograd Functions.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -49,23 +48,16 @@ K3_CHANNELS = 18
 K12_THREADS = 256
 K4_THREADS = 128
 
+# the kernels' C entries in csrc/ccn_fused.cu: (name, argtypes), for
+# cuda_build.entry
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = {
-    "hgnn2_ccn1d_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "hgnn2_ccn2d_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _P],
-    "hgnn2_ccn1d_backward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "hgnn2_ccn2d_backward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _I, _I, _P],
-}
-
-
-@functools.cache
-def _kernel(name: str):
-    fn = getattr(cuda_build.load("ccn_fused"), name)
-    fn.argtypes = _ARGTYPES[name]
-    fn.restype = ctypes.c_int
-    return fn
+_K1 = ("hgnn2_ccn1d_forward", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+_K2 = ("hgnn2_ccn1d_backward", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _P])
+_K3 = ("hgnn2_ccn2d_forward", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _P])
+_K4 = ("hgnn2_ccn2d_backward", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _I, _I, _P])
 
 
 def _k3_smem(K: int, vt: int, ct: int) -> int:
@@ -158,14 +150,6 @@ def _check_no_grad(f: torch.Tensor, name: str) -> None:
             "promote_contract_1d / promote_contract_18")
 
 
-def _launch(name: str, f: torch.Tensor, *args) -> None:
-    with torch.cuda.device(f.device):
-        stream = torch.cuda.current_stream(f.device).cuda_stream
-        err = _kernel(name)(*args, stream)
-    if err:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-
-
 def fused_contract_1d_forward(chi_idx: torch.Tensor, nbr: torch.Tensor,
                               f: torch.Tensor) -> torch.Tensor:
     """contract_1d(promote_1d(chi_idx, nbr, f)) in one kernel (K1).
@@ -177,8 +161,9 @@ def fused_contract_1d_forward(chi_idx: torch.Tensor, nbr: torch.Tensor,
         return contractions.contract_1d(contractions.promote_1d(chi_idx, nbr, f))
     _check_no_grad(f, "fused_contract_1d_forward")
     out = torch.empty((V, K, 2 * C), dtype=torch.float32, device=f.device)
-    _launch("hgnn2_ccn1d_forward", f, chi_idx.data_ptr(), nbr.data_ptr(),
-            f.data_ptr(), out.data_ptr(), V, K, C, *_k12_tile(K, C))
+    cuda_build.launch(cuda_build.entry("ccn_fused", *_K1), f.device,
+                      chi_idx.data_ptr(), nbr.data_ptr(), f.data_ptr(),
+                      out.data_ptr(), V, K, C, *_k12_tile(K, C))
     fused_contract_1d_forward.launches += 1
     return out
 
@@ -201,9 +186,10 @@ def fused_contract_1d_backward(chi_idx: torch.Tensor, rslot: torch.Tensor,
         return contractions.promote_1d_bwd(
             chi_idx, rslot, nbr, contractions.contract_1d_transpose(g))
     df = torch.empty((V, K, C2 // 2), dtype=torch.float32, device=g.device)
-    _launch("hgnn2_ccn1d_backward", g, chi_idx.data_ptr(), rslot.data_ptr(),
-            nbr.data_ptr(), g.data_ptr(), df.data_ptr(), V, K, C2 // 2,
-            *_k12_tile(K, C2 // 2))
+    cuda_build.launch(cuda_build.entry("ccn_fused", *_K2), g.device,
+                      chi_idx.data_ptr(), rslot.data_ptr(), nbr.data_ptr(),
+                      g.data_ptr(), df.data_ptr(), V, K, C2 // 2,
+                      *_k12_tile(K, C2 // 2))
     fused_contract_1d_backward.launches += 1
     return df
 
@@ -228,9 +214,10 @@ def fused_contract_forward(chi_idx: torch.Tensor, nbr: torch.Tensor,
             compat=compat)
     _check_no_grad(f, "fused_contract_forward")
     out = torch.empty((V, K, K, 18 * C), dtype=torch.float32, device=f.device)
-    _launch("hgnn2_ccn2d_forward", f, chi_idx.data_ptr(), nbr.data_ptr(),
-            f.data_ptr(), deg.data_ptr(), row_mask.data_ptr(), out.data_ptr(),
-            V, K, C, int(compat), *_k3_tile(K, C))
+    cuda_build.launch(cuda_build.entry("ccn_fused", *_K3), f.device,
+                      chi_idx.data_ptr(), nbr.data_ptr(), f.data_ptr(),
+                      deg.data_ptr(), row_mask.data_ptr(), out.data_ptr(),
+                      V, K, C, int(compat), *_k3_tile(K, C))
     fused_contract_forward.launches += 1
     return out
 
@@ -261,9 +248,10 @@ def fused_contract_backward(chi_idx: torch.Tensor, rslot: torch.Tensor,
             chi_idx, rslot, nbr,
             contractions.contract_18_transpose(g, deg, row_mask, compat=compat))
     df = torch.empty((V, K, K, C), dtype=torch.float32, device=g.device)
-    _launch("hgnn2_ccn2d_backward", g, chi_idx.data_ptr(), rslot.data_ptr(),
-            nbr.data_ptr(), g.data_ptr(), deg.data_ptr(), row_mask.data_ptr(),
-            df.data_ptr(), V, K, C, int(compat), *_k4_tile(K, C))
+    cuda_build.launch(cuda_build.entry("ccn_fused", *_K4), g.device,
+                      chi_idx.data_ptr(), rslot.data_ptr(), nbr.data_ptr(),
+                      g.data_ptr(), deg.data_ptr(), row_mask.data_ptr(),
+                      df.data_ptr(), V, K, C, int(compat), *_k4_tile(K, C))
     fused_contract_backward.launches += 1
     return df
 

@@ -9,6 +9,10 @@ waits for all of them. Nothing here runs at import time. A process started
 with HGNN2_PREBUILT=1 (the dry run's children, which share one card and
 one checkout) only loads: a library missing there raises instead of
 being built.
+
+``entry`` types a library's C entry once, and ``launch`` calls a kernel
+entry on the current stream of its tensors' device, the one launch path
+of the port's kernel wrappers.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hgnn2_torch"
 SOURCES = {"ccn_fused": "ccn_fused.cu", "ring": "ring.cu",
@@ -29,6 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_entries: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -92,3 +99,28 @@ def load(name: str) -> ctypes.CDLL:
         build_all([name])
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]
+
+
+def entry(lib: str, name: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry ``name`` of library ``lib``, typed with ``argtypes`` and
+    an int return (a CUDA error code, 0 for success), loaded once."""
+    key = (lib, name)
+    if key not in _entries:
+        fn = getattr(load(lib), name)
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        _entries[key] = fn
+    return _entries[key]
+
+
+def check(err: int, what: str) -> None:
+    """Raises for an entry's nonzero return."""
+    if err:
+        raise RuntimeError(f"{what} failed: CUDA error {err}")
+
+
+def launch(fn: ctypes._CFuncPtr, device: torch.device, *args) -> None:
+    """Calls the kernel entry ``fn`` with ``args`` and the current stream of
+    ``device`` appended, with ``device`` current; raises where it fails."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(err, f"{fn.__name__} launch")

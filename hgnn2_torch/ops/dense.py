@@ -19,11 +19,11 @@ gather reads edge 0 at padded edges (rev = 0 there), so padded rows of
 the result are not zero; the masked scatter matrices and batch norm keep
 them out of real outputs.
 
-These one-hot products are the line-graph exchange's composition: what
-nn/bundles.py:DenseBundle runs on the CPU, in bf16 and in float64, and
-the yardstick of its CUDA float32 path, which takes the index-form
-kernels of ops/lg_exchange.py (gathers and segment sums over src, dst
-and rev, the same sums in another order) and builds no scatter matrix.
+These one-hot products are the counterparts of the JAX package's, held
+to them in the tests, and the yardstick of the exchange the model runs:
+nn/bundles.py:DenseBundle takes the index form of ops/lg_exchange.py
+(gathers and segment sums over src, dst and rev, the same sums in
+another order) on every device, and builds no scatter matrix.
 """
 
 from __future__ import annotations

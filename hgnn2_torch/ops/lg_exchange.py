@@ -1,8 +1,9 @@
 """The line-graph exchange in index form: [Pm xl | Pd xl], [Pm^T x | Pd^T x]
 and the non-backtracking apply as gathers and segment sums over each
-graph's src, dst and rev, for nn/bundles.py:DenseBundle. Wrappers of the
-CUDA kernels in csrc/lg_exchange.cu, joined by torch.autograd.Functions,
-and the same functions in plain PyTorch.
+graph's src, dst and rev: the one exchange of nn/bundles.py:DenseBundle,
+on every device and in every float dtype. Wrappers of the CUDA kernels in
+csrc/lg_exchange.cu, joined by torch.autograd.Functions, and the same
+functions in plain PyTorch.
 
   pm_pd_forward     (B, M, F) -> (B, N, 2F)  [Pm xl | Pd xl]
   pm_pd_backward    (B, N, 2F) -> (B, M, F)  its gradient
@@ -21,19 +22,22 @@ the segment sums differs. The JAX package has no kernel here (XLA fuses
 its einsums on the TPU); on the H100 the composition is cuBLAS GEMVs that
 read the whole one-hot (B, N, M) matrices to move a few floats an edge.
 
-For CUDA tensors each raw wrapper launches its kernel (one launch, on the
-current stream) and adds one to its ``launches`` count; a kernel that
-cannot run raises. For CPU tensors it runs the plain PyTorch version (the
-``*_reference`` functions: gathers and ``index_add_``), in any float
-dtype. An index out of range (src, dst outside [0, N), rev outside
-[0, M)) adds nothing on either path. The features are differentiated,
-the indices, weights, mask and NB degrees are constants.
+Each raw wrapper alone picks its path. Where use_kernel holds (CUDA
+float32 tensors) it launches its kernel (one launch, on the current
+stream) and adds one to its ``launches`` count; a kernel that cannot run
+raises. Elsewhere (the CPU, float64, bf16) it runs the plain PyTorch
+version (the ``*_reference`` functions: gathers and ``index_add_``) and
+counts nothing; bf16 inputs run it in float32 and its output is rounded
+to bf16 once, the rounding ops/dense.py's einsums give bf16 (f32
+accumulation, one rounding). An index out of range (src, dst outside
+[0, N), rev outside [0, M)) adds nothing on either path. The features
+are differentiated, the indices, weights, mask and NB degrees are
+constants.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -44,18 +48,17 @@ from hgnn2_torch.ops import cuda_build
 THREADS = 128
 SMEM_BYTES = 48 * 1024
 
+# the kernels' C entries: (name, argtypes), for cuda_build.entry
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = {
-    "hgnn2_lg_to_nodes": [_P] * 5 + [_I] * 6 + [_P],
-    "hgnn2_lg_to_edges": [_P] * 5 + [_I] * 5 + [_P],
-    "hgnn2_lg_nb_forward": [_P] * 9 + [_I] * 6 + [_P],
-    "hgnn2_lg_nb_backward": [_P] * 9 + [_I] * 6 + [_P],
-}
+_TO_NODES = ("hgnn2_lg_to_nodes", [_P] * 5 + [_I] * 6 + [_P])
+_TO_EDGES = ("hgnn2_lg_to_edges", [_P] * 5 + [_I] * 5 + [_P])
+_NB_FORWARD = ("hgnn2_lg_nb_forward", [_P] * 9 + [_I] * 6 + [_P])
+_NB_BACKWARD = ("hgnn2_lg_nb_backward", [_P] * 9 + [_I] * 6 + [_P])
 
 
 def use_kernel(device: torch.device, dtype: torch.dtype) -> bool:
-    """Whether DenseBundle takes the index-form kernels: on CUDA, in
-    float32. The CPU, bf16 and float64 take the one-hot composition."""
+    """Whether the wrappers launch the kernels: on CUDA, in float32. The
+    CPU, bf16 and float64 run the plain versions."""
     return dtype == torch.float32 and torch.device(device).type == "cuda"
 
 
@@ -180,19 +183,12 @@ def _graphs_per_block(kind: str, N: int, M: int, F: int) -> int:
     return min(max(THREADS // max(items, 1), 1), fit)
 
 
-@functools.cache
-def _kernel(name: str):
-    fn = getattr(cuda_build.load("lg_exchange"), name)
-    fn.argtypes = _ARGTYPES[name]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _check(src, dst, emask, feats: torch.Tensor, rows: int, width: int,
-           **more) -> None:
-    """Device, dtype, shape and contiguity checks shared by the wrappers:
-    src, dst (and rev) (B, M) int32, emask (and w, dl) (B, M) in the
-    features' dtype, feats (B, rows, width)."""
+           **more) -> bool:
+    """Device, dtype and shape checks shared by the wrappers: src, dst
+    (and rev) (B, M) int32, emask (and w, dl) (B, M) in the features'
+    dtype, feats (B, rows, width), all on the features' device. Returns
+    use_kernel, whose kernels also need every tensor contiguous."""
     B, M = src.shape
     if tuple(feats.shape) != (B, rows, width):
         raise ValueError(f"features must be {(B, rows, width)}; got {tuple(feats.shape)}")
@@ -206,22 +202,23 @@ def _check(src, dst, emask, feats: torch.Tensor, rows: int, width: int,
             raise TypeError(f"{name} is {t.dtype}, must be {want}")
         if t.device != feats.device:
             raise ValueError(f"{name} is on {t.device}, the features on {feats.device}")
-    if feats.device.type == "cuda":
-        if feats.dtype != torch.float32:
-            raise TypeError(f"the kernels take float32; got {feats.dtype}")
-        for name, t in {**tensors, "features": feats}.items():
-            if not t.is_contiguous():
-                raise ValueError(f"{name} must be contiguous")
-    elif feats.device.type != "cpu":
-        raise ValueError(f"unsupported device {feats.device}")
+    if not use_kernel(feats.device, feats.dtype):
+        return False
+    for name, t in {**tensors, "features": feats}.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return True
 
 
-def _launch(name: str, t: torch.Tensor, *args) -> None:
-    with torch.cuda.device(t.device):
-        stream = torch.cuda.current_stream(t.device).cuda_stream
-        err = _kernel(name)(*args, stream)
-    if err:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+def _plain(fn, *args) -> torch.Tensor:
+    """The plain version fn on args. Its float tensors share one dtype
+    (_check); narrower than float32 (bf16), fn runs on float32 copies and
+    its output is rounded to that dtype once."""
+    dt = next(a.dtype for a in args if torch.is_tensor(a) and a.is_floating_point())
+    if torch.finfo(dt).bits >= 32:
+        return fn(*args)
+    return fn(*[a.float() if torch.is_tensor(a) and a.is_floating_point() else a
+                for a in args]).to(dt)
 
 
 def _to_nodes(src, dst, emask, feats, n_nodes: int, pair: bool):
@@ -231,9 +228,10 @@ def _to_nodes(src, dst, emask, feats, n_nodes: int, pair: bool):
                       device=feats.device)
     G = _graphs_per_block("to_nodes_pair" if pair else "to_nodes_sum",
                           n_nodes, M, F)
-    _launch("hgnn2_lg_to_nodes", feats, src.data_ptr(), dst.data_ptr(),
-            emask.data_ptr(), feats.data_ptr(), out.data_ptr(), B, n_nodes, M,
-            F, int(pair), G)
+    cuda_build.launch(cuda_build.entry("lg_exchange", *_TO_NODES), feats.device,
+                      src.data_ptr(), dst.data_ptr(), emask.data_ptr(),
+                      feats.data_ptr(), out.data_ptr(), B, n_nodes, M, F,
+                      int(pair), G)
     return out
 
 
@@ -243,32 +241,33 @@ def _to_edges(src, dst, emask, feats, pair: bool):
     F = fi if pair else fi // 2
     out = torch.empty((B, M, 2 * F if pair else F), dtype=feats.dtype,
                       device=feats.device)
-    _launch("hgnn2_lg_to_edges", feats, src.data_ptr(), dst.data_ptr(),
-            emask.data_ptr(), feats.data_ptr(), out.data_ptr(), B, N, M, F,
-            int(pair))
+    cuda_build.launch(cuda_build.entry("lg_exchange", *_TO_EDGES), feats.device,
+                      src.data_ptr(), dst.data_ptr(), emask.data_ptr(),
+                      feats.data_ptr(), out.data_ptr(), B, N, M, F, int(pair))
     return out
 
 
-def _nb(name, src, dst, rev, emask, w, dl, feats, out_width, n_nodes, F):
+def _nb(spec, src, dst, rev, emask, w, dl, feats, out_width, n_nodes, F):
     B, M = src.shape
     out = torch.empty((B, M, out_width), dtype=feats.dtype, device=feats.device)
     G = _graphs_per_block("nb", n_nodes, M, F)
     scratch = (torch.empty((B, n_nodes, F), dtype=feats.dtype,
                            device=feats.device) if G == 0 else None)
-    _launch(name, feats, src.data_ptr(), dst.data_ptr(), rev.data_ptr(),
-            emask.data_ptr(), w.data_ptr(),
-            0 if dl is None else dl.data_ptr(), feats.data_ptr(),
-            out.data_ptr(), 0 if scratch is None else scratch.data_ptr(), B,
-            n_nodes, M, F, int(dl is not None), G)
+    cuda_build.launch(cuda_build.entry("lg_exchange", *spec), feats.device,
+                      src.data_ptr(), dst.data_ptr(), rev.data_ptr(),
+                      emask.data_ptr(), w.data_ptr(),
+                      0 if dl is None else dl.data_ptr(), feats.data_ptr(),
+                      out.data_ptr(),
+                      0 if scratch is None else scratch.data_ptr(), B,
+                      n_nodes, M, F, int(dl is not None), G)
     return out
 
 
 def pm_pd_forward(src, dst, emask, xl: torch.Tensor, n_nodes: int) -> torch.Tensor:
     """[Pm xl | Pd xl] in one kernel: xl (B, M, F) -> (B, N, 2F)."""
     B, M = src.shape
-    _check(src, dst, emask, xl, M, xl.shape[-1])
-    if xl.device.type == "cpu":
-        return pm_pd_reference(src, dst, emask, xl, n_nodes)
+    if not _check(src, dst, emask, xl, M, xl.shape[-1]):
+        return _plain(pm_pd_reference, src, dst, emask, xl, n_nodes)
     out = _to_nodes(src, dst, emask, xl, n_nodes, pair=True)
     pm_pd_forward.launches += 1
     return out
@@ -276,9 +275,8 @@ def pm_pd_forward(src, dst, emask, xl: torch.Tensor, n_nodes: int) -> torch.Tens
 
 def pm_pd_backward(src, dst, emask, g: torch.Tensor) -> torch.Tensor:
     """pm_pd's gradient in one kernel: g (B, N, 2F) -> (B, M, F)."""
-    _check(src, dst, emask, g, g.shape[1], 2 * (g.shape[-1] // 2))
-    if g.device.type == "cpu":
-        return pm_pd_grad_reference(src, dst, emask, g)
+    if not _check(src, dst, emask, g, g.shape[1], 2 * (g.shape[-1] // 2)):
+        return _plain(pm_pd_grad_reference, src, dst, emask, g)
     out = _to_edges(src, dst, emask, g, pair=False)
     pm_pd_backward.launches += 1
     return out
@@ -286,9 +284,8 @@ def pm_pd_backward(src, dst, emask, g: torch.Tensor) -> torch.Tensor:
 
 def pm_pd_t_forward(src, dst, emask, x: torch.Tensor) -> torch.Tensor:
     """[Pm^T x | Pd^T x] in one kernel: x (B, N, F) -> (B, M, 2F)."""
-    _check(src, dst, emask, x, x.shape[1], x.shape[-1])
-    if x.device.type == "cpu":
-        return pm_pd_t_reference(src, dst, emask, x)
+    if not _check(src, dst, emask, x, x.shape[1], x.shape[-1]):
+        return _plain(pm_pd_t_reference, src, dst, emask, x)
     out = _to_edges(src, dst, emask, x, pair=True)
     pm_pd_t_forward.launches += 1
     return out
@@ -296,9 +293,8 @@ def pm_pd_t_forward(src, dst, emask, x: torch.Tensor) -> torch.Tensor:
 
 def pm_pd_t_backward(src, dst, emask, g: torch.Tensor, n_nodes: int) -> torch.Tensor:
     """pm_pd_t's gradient in one kernel: g (B, M, 2F) -> (B, N, F)."""
-    _check(src, dst, emask, g, src.shape[1], 2 * (g.shape[-1] // 2))
-    if g.device.type == "cpu":
-        return pm_pd_t_grad_reference(src, dst, emask, g, n_nodes)
+    if not _check(src, dst, emask, g, src.shape[1], 2 * (g.shape[-1] // 2)):
+        return _plain(pm_pd_t_grad_reference, src, dst, emask, g, n_nodes)
     out = _to_nodes(src, dst, emask, g, n_nodes, pair=False)
     pm_pd_t_backward.launches += 1
     return out
@@ -309,10 +305,9 @@ def nb_forward(src, dst, rev, emask, w, xl: torch.Tensor, n_nodes: int,
     """AL xl (B, M, F) in one kernel; with dl the whole [xl emask | dl xl |
     AL xl] (B, M, 3F), lg_graph_op at J = 1."""
     F = xl.shape[-1]
-    _check(src, dst, emask, xl, src.shape[1], F, rev=rev, w=w, dl=dl)
-    if xl.device.type == "cpu":
-        return nb_reference(src, dst, rev, emask, w, xl, n_nodes, dl)
-    out = _nb("hgnn2_lg_nb_forward", src, dst, rev, emask, w, dl, xl,
+    if not _check(src, dst, emask, xl, src.shape[1], F, rev=rev, w=w, dl=dl):
+        return _plain(nb_reference, src, dst, rev, emask, w, xl, n_nodes, dl)
+    out = _nb(_NB_FORWARD, src, dst, rev, emask, w, dl, xl,
               F if dl is None else 3 * F, n_nodes, F)
     nb_forward.launches += 1
     return out
@@ -324,11 +319,11 @@ def nb_backward(src, dst, rev, emask, w, g: torch.Tensor, n_nodes: int,
     with dl -> (B, M, F)."""
     fg = g.shape[-1]
     F = fg // 3 if dl is not None else fg
-    _check(src, dst, emask, g, src.shape[1], 3 * F if dl is not None else F,
-           rev=rev, w=w, dl=dl)
-    if g.device.type == "cpu":
-        return nb_grad_reference(src, dst, rev, emask, w, g, n_nodes, dl)
-    out = _nb("hgnn2_lg_nb_backward", src, dst, rev, emask, w, dl, g, F,
+    if not _check(src, dst, emask, g, src.shape[1],
+                  3 * F if dl is not None else F, rev=rev, w=w, dl=dl):
+        return _plain(nb_grad_reference, src, dst, rev, emask, w, g, n_nodes,
+                      dl)
+    out = _nb(_NB_BACKWARD, src, dst, rev, emask, w, dl, g, F,
               n_nodes, F)
     nb_backward.launches += 1
     return out
@@ -422,6 +417,6 @@ def lg_graph_op(src, dst, rev, emask, w, dl, xl: torch.Tensor, J: int,
 
 def nb_degrees(src, dst, rev, emask, w, n_nodes: int) -> torch.Tensor:
     """The NB line-graph degrees dl = (AL 1) emask, (B, M): ops/dense.py's
-    nb_degrees times the edge mask, one kernel on a ones input."""
+    nb_degrees times the edge mask, one NB apply on a ones input."""
     ones = torch.ones(w.shape + (1,), dtype=w.dtype, device=w.device)
     return nb_forward(src, dst, rev, emask, w, ones, n_nodes)[..., 0] * emask

@@ -24,7 +24,6 @@ group; it is what runs on the CPU.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 import torch.distributed as dist
@@ -34,14 +33,24 @@ from hgnn2_torch.ops import cuda_build
 MAX_RANKS = 8  # the kernel's by-value pointer table; the JAX tests' largest mesh
 
 
-@functools.cache
-def _kernel():
-    fn = cuda_build.load("ring").hgnn2_ring_allreduce
-    ptrs = ctypes.POINTER(ctypes.c_void_p)
-    fn.argtypes = [ptrs, ptrs, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+# the ring library's C entries in csrc/ring.cu: (name, argtypes), for
+# cuda_build.entry; K5 within a process, then K5 across processes and the
+# CUDA IPC calls that map their slots
+_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_PP = ctypes.POINTER(ctypes.c_void_p)
+_ALLREDUCE = ("hgnn2_ring_allreduce", [_PP, _PP, _I, _LL, _VP])
+_REDUCE_RANK = ("hgnn2_ring_reduce_rank", [_PP, _VP, _I, _I, _LL, _VP])
+_IPC = {"hgnn2_ipc_handle_bytes": [],
+        "hgnn2_ipc_alloc": [_I, _LL, _PP],
+        "hgnn2_ipc_export": [_I, _VP, ctypes.c_char_p],
+        "hgnn2_ipc_open": [_I, ctypes.c_char_p, _PP],
+        "hgnn2_ipc_close": [_I, _VP],
+        "hgnn2_ipc_free": [_I, _VP],
+        "hgnn2_ipc_copy": [_VP, _VP, _LL, _VP]}
+
+
+def _ipc(name: str) -> ctypes._CFuncPtr:
+    return cuda_build.entry("ring", name, _IPC[name])
 
 
 def ring_psum_reference(parts: list[torch.Tensor]) -> list[torch.Tensor]:
@@ -95,41 +104,13 @@ def ring_psum(parts: list[torch.Tensor]) -> list[torch.Tensor]:
                       device=x0.device)
     ins = (ctypes.c_void_p * S)(*[x.data_ptr() for x in parts])
     outs = (ctypes.c_void_p * S)(*[out[r].data_ptr() for r in range(S)])
-    with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream(x0.device).cuda_stream
-        err = _kernel()(ins, outs, S, n, stream)
-    if err:
-        raise RuntimeError(f"hgnn2_ring_allreduce launch failed: CUDA error {err}")
+    cuda_build.launch(cuda_build.entry("ring", *_ALLREDUCE), x0.device, ins,
+                      outs, S, n)
     ring_psum.launches += 1
     return list(out.unbind(0))
 
 
 ring_psum.launches = 0
-
-
-@functools.cache
-def _lib():
-    """The ring library's entries for K5 across processes, typed."""
-    lib = cuda_build.load("ring")
-    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    pp = ctypes.POINTER(ctypes.c_void_p)
-    for name, args in (
-            ("hgnn2_ring_reduce_rank", [pp, vp, i, i, ll, vp]),
-            ("hgnn2_ipc_handle_bytes", []),
-            ("hgnn2_ipc_alloc", [i, ll, pp]),
-            ("hgnn2_ipc_export", [i, vp, ctypes.c_char_p]),
-            ("hgnn2_ipc_open", [i, ctypes.c_char_p, pp]),
-            ("hgnn2_ipc_close", [i, vp]),
-            ("hgnn2_ipc_free", [i, vp]),
-            ("hgnn2_ipc_copy", [vp, vp, ll, vp])):
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = args, ctypes.c_int
-    return lib
-
-
-def _ok(err: int, what: str) -> None:
-    if err:
-        raise RuntimeError(f"{what} failed: CUDA error {err}")
 
 
 def gather_parts(x: torch.Tensor, group=None) -> list[torch.Tensor]:
@@ -237,9 +218,9 @@ class ProcessRing:
                 self._grow(n, x)
             stream = torch.cuda.current_stream(x.device)
             self._filled = self.calls % 2
-            _ok(_lib().hgnn2_ipc_copy(self._slot(self._own, self._filled),
-                                      x.data_ptr(), n * 4, stream.cuda_stream),
-                "hgnn2_ipc_copy")
+            cuda_build.check(_ipc("hgnn2_ipc_copy")(
+                self._slot(self._own, self._filled), x.data_ptr(), n * 4,
+                stream.cuda_stream), "hgnn2_ipc_copy")
             stream.synchronize()
             if self._last is not None:
                 self._last.synchronize()
@@ -254,14 +235,11 @@ class ProcessRing:
         S = self.size
         ins = (ctypes.c_void_p * S)(*[self._slot(p, self._filled)
                                       for p in self._ptrs])
-        with torch.cuda.device(out.device):
-            stream = torch.cuda.current_stream(out.device)
-            _ok(_lib().hgnn2_ring_reduce_rank(ins, out.data_ptr(), S, self.rank,
-                                              n, stream.cuda_stream),
-                "hgnn2_ring_reduce_rank launch")
-            ProcessRing.launches += 1
-            self._last = torch.cuda.Event()
-            self._last.record(stream)
+        cuda_build.launch(cuda_build.entry("ring", *_REDUCE_RANK), out.device,
+                          ins, out.data_ptr(), S, self.rank, n)
+        ProcessRing.launches += 1
+        self._last = torch.cuda.Event()
+        self._last.record(torch.cuda.current_stream(out.device))
 
     def _slot(self, block: int, k: int) -> int:
         return block + k * self._cap * 4
@@ -273,12 +251,13 @@ class ProcessRing:
                else torch.cuda.current_device())
         self.close()
         cap = -(-n // 64) * 64
-        lib = _lib()
         own = ctypes.c_void_p()
-        _ok(lib.hgnn2_ipc_alloc(dev, 2 * cap * 4, ctypes.byref(own)),
-            "hgnn2_ipc_alloc")
-        handle = ctypes.create_string_buffer(lib.hgnn2_ipc_handle_bytes())
-        _ok(lib.hgnn2_ipc_export(dev, own, handle), "hgnn2_ipc_export")
+        cuda_build.check(_ipc("hgnn2_ipc_alloc")(dev, 2 * cap * 4,
+                                                 ctypes.byref(own)),
+                         "hgnn2_ipc_alloc")
+        handle = ctypes.create_string_buffer(_ipc("hgnn2_ipc_handle_bytes")())
+        cuda_build.check(_ipc("hgnn2_ipc_export")(dev, own, handle),
+                         "hgnn2_ipc_export")
         handles = [None] * self.size
         dist.all_gather_object(handles, handle.raw, group=self.group)
         ptrs = []
@@ -287,8 +266,8 @@ class ProcessRing:
                 ptrs.append(own.value)
                 continue
             peer = ctypes.c_void_p()
-            _ok(lib.hgnn2_ipc_open(dev, h, ctypes.byref(peer)),
-                f"hgnn2_ipc_open of rank {k}'s slots")
+            cuda_build.check(_ipc("hgnn2_ipc_open")(dev, h, ctypes.byref(peer)),
+                             f"hgnn2_ipc_open of rank {k}'s slots")
             ptrs.append(peer.value)
         self._own, self._ptrs, self._cap, self._dev = own.value, ptrs, cap, dev
 
@@ -299,10 +278,11 @@ class ProcessRing:
             return
         torch.cuda.synchronize(self._dev)
         dist.barrier(group=self.group)
-        lib = _lib()
         for k, p in enumerate(self._ptrs):
             if k != self.rank:
-                _ok(lib.hgnn2_ipc_close(self._dev, p), "hgnn2_ipc_close")
+                cuda_build.check(_ipc("hgnn2_ipc_close")(self._dev, p),
+                                 "hgnn2_ipc_close")
         dist.barrier(group=self.group)
-        _ok(lib.hgnn2_ipc_free(self._dev, self._own), "hgnn2_ipc_free")
+        cuda_build.check(_ipc("hgnn2_ipc_free")(self._dev, self._own),
+                         "hgnn2_ipc_free")
         self._own, self._ptrs, self._cap, self._last = None, [], 0, None

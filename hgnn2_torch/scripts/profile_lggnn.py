@@ -2,13 +2,12 @@
 of scripts/profile_lggnn.py).
 
     python -m hgnn2_torch.scripts.profile_lggnn [--molecules 16384]
-        [--batch_size 2048] [--h 1] [--packed | --fused]
+        [--batch_size 2048] [--h 1] [--packed]
         [--sweep_h 1 4 16] [--split] [--device cuda|cpu] [--out DIR]
 
 Trains GNNLineGraph (L=5, J=1, update order 2; the dense layout, whose
-exchange takes the index-form kernels on the card, ``--fused`` its
-FusedLGBundle form) or PackedLGGNN (``--packed``, the
-segment-sum layout) on synthetic QM9-shaped molecules through the
+exchange takes the index-form kernels on the card) or PackedLGGNN
+(``--packed``, the segment-sum layout) on synthetic QM9-shaped molecules through the
 shipped pipeline: DenseLoader(with_line_graph=True) or PackedLoader
 under CachedLoader(shuffle=False), Adamax at lr 3e-4,
 group_stacked_batches and make_scanned_epoch, every step one replayed
@@ -62,8 +61,7 @@ def log(msg):
     print(msg, file=sys.stderr, flush=True)
 
 
-def build(records, ts, h, bs, use_packed, fused=False, device=None,
-          init_params=None):
+def build(records, ts, h, bs, use_packed, device=None, init_params=None):
     """JAX's build on ``device``: (model, stacked groups, scan_fn, steps
     an epoch). init_params: flax variables of the JAX model (JAX's init
     through hgnn2_torch.convert); else weights from seed 0."""
@@ -80,8 +78,7 @@ def build(records, ts, h, bs, use_packed, fused=False, device=None,
                                      with_line_graph=True, sort=True,
                                      device=dev)
         model = models.GNNLineGraph(in_features=n_in, n_features=h,
-                                    n_layers=5, J=1, order=2,
-                                    fused_ops=fused, generator=gen)
+                                    n_layers=5, J=1, order=2, generator=gen)
     if init_params is not None:
         model.load_state_dict(convert.variables_from_flax(init_params))
     model.to(dev)
@@ -220,9 +217,6 @@ def main(argv=None):
     ap.add_argument("--batch_size", type=int, default=2048)
     ap.add_argument("--h", type=int, default=1)
     ap.add_argument("--packed", action="store_true")
-    ap.add_argument("--fused", action="store_true",
-                    help="dense layout with FusedLGBundle combined-operator"
-                         " einsums")
     ap.add_argument("--sweep_h", type=int, nargs="*", default=None)
     ap.add_argument("--split", action="store_true",
                     help="eager steps' device time split by the hgnn2.lg.*"
@@ -240,12 +234,11 @@ def main(argv=None):
     ts = stats.compute_target_stats(records)
     log(f"set-up: {len(records)} records in {time.perf_counter() - t0:.1f} s")
     n_mol = len(records)
-    layout = ("packed" if args.packed
-              else "dense_fused" if args.fused else "dense")
+    layout = "packed" if args.packed else "dense"
     os.makedirs(args.out, exist_ok=True)
 
     if args.split:
-        if args.packed or args.fused:
+        if args.packed:
             ap.error("--split profiles the dense layout only")
         out = split(records, ts, args.h, args.batch_size, dev)
         with open(os.path.join(args.out, f"split_dense_h{args.h}.json"),
@@ -259,7 +252,7 @@ def main(argv=None):
         for h in args.sweep_h:
             t0 = time.perf_counter()
             _, groups, scan_fn, n_steps = build(
-                records, ts, h, args.batch_size, args.packed, args.fused, dev)
+                records, ts, h, args.batch_size, args.packed, dev)
             log(f"set-up: batches in {time.perf_counter() - t0:.1f} s")
             epoch_s, compile_s, mets = timed_epochs(groups, scan_fn)
             row = {
@@ -283,7 +276,7 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     _, groups, scan_fn, n_steps = build(
-        records, ts, args.h, args.batch_size, args.packed, args.fused, dev)
+        records, ts, args.h, args.batch_size, args.packed, dev)
     log(f"set-up: batches in {time.perf_counter() - t0:.1f} s")
     epoch_s, compile_s, mets = timed_epochs(groups, scan_fn)
     log(f"[{layout} h={args.h}] scanned epoch {epoch_s:.4f} s over {n_steps} "

@@ -155,8 +155,7 @@ def _model_meta(model: torch.nn.Module, kind: str) -> dict[str, Any]:
             "order": getattr(model, "order", 1),
             "gru": bool(getattr(model, "gru", False)),
             "compat_reference": model.compat == CompatConfig.reference(),
-            "dim_output": model.dim_output,
-            "fused_ops": bool(getattr(model, "fused_ops", False))}
+            "dim_output": model.dim_output}
 
 
 def _check_buckets(specs: Sequence[dict]) -> None:
@@ -503,8 +502,8 @@ def _build_model(meta: Mapping[str, Any], dev: torch.device) -> torch.nn.Module:
         kw["order"] = meta["order"]
     if cls is models.GNNSimple:
         kw["gru"] = meta["gru"]
-    if cls is models.GNNLineGraph:
-        kw["fused_ops"] = meta["fused_ops"]
+    # bundles written while GNNLineGraph had a fused_ops option carry it in
+    # their meta; it chose another form of the same math, and is ignored
     return cls(**kw)
 
 

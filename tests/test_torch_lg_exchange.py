@@ -1,33 +1,40 @@
 """The line-graph exchange in index form (hgnn2_torch/ops/lg_exchange.py,
-csrc/lg_exchange.cu) and the rule that picks it.
+csrc/lg_exchange.cu), DenseBundle's one exchange, and the rule that picks
+kernel or plain version.
 
 On the CPU, in float64: the plain versions against ops/dense.py's one-hot
 composition (outputs, and gradients by autograd through it) at the
 benchmark's two shape groups (node/edge buckets 16/32 and 32/64, padded
-edges with rev = 0 included), F = 1, 2 and 5; DenseBundle with the rule
-forced to the index form (whose wrappers run the plain versions on the
-CPU) against MaterializedBundle at J = 1, 2 and 3, and GNNLineGraph
-(orders 1-3, J = 1 and 2) and a layer's whole outputs, padded rows
-included, against the composition; gradcheck of each autograd Function;
-the dispatch rule, and the CPU, bf16, float64 and fused_ops paths, which
-call no wrapper and give the composition's bits; the shared-memory plan
-and the wrappers' refusals.
+edges with rev = 0 included), F = 1, 2 and 5; DenseBundle (whose wrappers
+run the plain versions on the CPU) against MaterializedBundle at J = 1, 2
+and 3, and GNNLineGraph (orders 1-3, J = 1 and 2) and a layer's whole
+outputs, padded rows included, against the model run through the
+composition; gradcheck of each autograd Function; the dispatch rule; the
+paths off the kernel (the CPU in float32, float64, bf16), which move no
+launch counter and give the composition's output and gradients, and
+bf16's single rounding; the shared-memory plan and the wrappers'
+refusals.
 
 On the card (marked requires_cuda; each skips without a card): each kernel
 and its backward against the plain version on the CPU (bit for bit: the
 same products and sums in the same order, each rounded on its own) and
 against the composition on the card, at the line-graph cell's two shape
 groups (2,048 molecules) and at a graph too large to stage (the looped
-instantiation); a captured and replayed GNNLineGraph step against the
-eager one, with the kernels' launches per step from the counters and
-from the profiler. The file imports the port only, so it runs where JAX
+instantiation); the plain versions on the card in float64 and bf16
+against the CPU, no launch counted; a captured and replayed
+GNNLineGraph step against the eager one, with the kernels' launches per
+step from the counters and from the profiler. The file imports the port only, so it runs where JAX
 is not installed:
 
     python -m pytest --noconftest tests/test_torch_lg_exchange.py -q
 
 Tolerances: float64 sums in another order, 1e-12 of the largest |value|;
-on the card the composition's GEMVs sum in float32 in another order,
-1e-6 of the largest |value| (the segment sums add at most a few terms).
+float32 (the composition's GEMVs on the card, its einsums on the CPU)
+sums in another order, 1e-6 of the largest |value| (the segment sums add
+at most a few terms); bf16, where the composition rounds after each
+product and the index form once a wrapper, 2^-7 of the largest |value|
+(bf16's rounding of its inputs and output, chip_smoke.py's bar for the
+bf16 lg_graph_op).
 """
 
 import re
@@ -45,6 +52,7 @@ from hgnn2_torch.ops import lg_exchange as X
 GROUPS = {"n16_m32": (16, 32), "n32_m64": (32, 64)}
 F64_RTOL = 1e-12
 CARD_RTOL = 1e-6
+BF16_RTOL = 2 ** -7
 WRAPPERS = ("pm_pd_forward", "pm_pd_backward", "pm_pd_t_forward",
             "pm_pd_t_backward", "nb_forward", "nb_backward")
 
@@ -103,6 +111,42 @@ def _composition(db):
                                             1, em),
         "dl": dl,
     }
+
+
+class _CompositionBundle:
+    """The line-graph exchange as ops/dense.py's one-hot composition over
+    the batch's arrays, the rest of a DenseBundle as it is: the oracle of
+    the index form in the model. Its operators are cast to dtype (bf16
+    compute) after they are built in the batch's dtype."""
+
+    has_line_graph = True
+
+    def __init__(self, db, J, dtype=None):
+        self.dense = bundles.DenseBundle.from_batch(db, J, dtype=dtype)
+        src, dst, rev, em, w = _arrays(db)
+        s_src, s_dst = D.edge_scatter_matrices(src, dst, em, db.x.shape[1])
+        self.J, self.rev, self.em = J, rev.long(), em
+        dl = D.nb_degrees(s_src, s_dst, w, self.rev) * em
+        self.s_src, self.s_dst, self.w, self.dl = (
+            t.to(dtype or w.dtype) for t in (s_src, s_dst, w, dl))
+
+    def graph_op(self, x):
+        return self.dense.graph_op(x)
+
+    def lg_graph_op(self, xl):
+        return D.lg_graph_op(self.s_src, self.s_dst, self.w, self.rev,
+                             self.dl, xl, self.J, self.em)
+
+    def pm_pd(self, xl):
+        return torch.cat([D.incidence_apply(self.s_src, self.s_dst, xl, s)
+                          for s in (False, True)], -1)
+
+    def pm_pd_t(self, x):
+        return torch.cat([D.incidence_t_apply(self.s_src, self.s_dst, x, s)
+                          for s in (False, True)], -1)
+
+    def edge_features(self):
+        return self.dl[:, :, None]
 
 
 def _plain(db):
@@ -169,23 +213,15 @@ def _materialized(recs, N, M, J):
     return bundles.MaterializedBundle(*map(torch.from_numpy, (W, WL, Pm, Pd)))
 
 
-@pytest.fixture
-def index_form(monkeypatch):
-    """The rule without its device test: float32 and float64 take the
-    index form on the CPU, whose wrappers run the plain versions."""
-    monkeypatch.setattr(X, "use_kernel", lambda device, dtype: dtype in (
-        torch.float32, torch.float64))
-
-
 @pytest.mark.parametrize("J", [1, 2, 3])
 @pytest.mark.parametrize("group", list(GROUPS))
-def test_index_form_bundle_matches_materialized(index_form, group, J):
-    """DenseBundle in index form against the materialized oracle on the
+def test_index_form_bundle_matches_materialized(group, J):
+    """DenseBundle's index form against the materialized oracle on the
     real rows of every exchange op, and its edge features."""
     N, M = GROUPS[group]
     db = _batch(group, 8, scale_w=False)
     b = bundles.DenseBundle.from_batch(db, J, with_line_graph=True)
-    assert b.index_form and b.s_src is None and b.rev.dtype == torch.int32
+    assert b.src is db.lg_src and b.rev.dtype == torch.int32
     mb = _materialized(_records(N, M, 8), N, M, J)
     gen = torch.Generator().manual_seed(J)
     nmask, emask = db.node_mask[..., None], db.edge_mask[..., None]
@@ -198,36 +234,43 @@ def test_index_form_bundle_matches_materialized(index_form, group, J):
     _close(b.edge_features(), mb.edge_features(), F64_RTOL, "edge features")
 
 
-def _model_run(db, order, J, seed=0, **kw):
+def _model_run(db, order, J, seed=0, composition=False, **kw):
+    """A GNNLineGraph train step's output and gradients, through its own
+    DenseBundle or, with composition, the one-hot composition."""
     m = models.GNNLineGraph(in_features=db.x.shape[2], n_features=2,
                             n_layers=3, J=J, order=order,
                             generator=torch.Generator().manual_seed(seed), **kw)
     m = m.to(db.x.dtype).train()
-    y = m(db)
+    y = m(db, bundle=_CompositionBundle(db, J, kw.get("dtype"))
+          if composition else None)
     y.pow(2).sum().backward()
     return y.detach(), {n: p.grad.clone() for n, p in m.named_parameters()}
 
 
 @pytest.mark.parametrize("order,J", [(1, 1), (2, 1), (3, 1), (1, 2), (2, 2),
                                      (3, 2)])
-def test_gnn_line_graph_index_form_matches_composition(monkeypatch, order, J):
+def test_gnn_line_graph_index_form_matches_composition(order, J):
     """GNNLineGraph in train mode, forward and backward, through the index
     form against the composition, in float64 at the 32/64 group."""
     db = _batch("n32_m64")
-    want = _model_run(db, order, J)
-    monkeypatch.setattr(X, "use_kernel", lambda device, dtype: True)
-    got = _model_run(db, order, J)
-    _close(got[0], want[0], F64_RTOL, "output")
+    _close_runs(_model_run(db, order, J),
+                _model_run(db, order, J, composition=True), F64_RTOL)
+
+
+def _close_runs(got, want, rtol):
+    """Two _model_run results: outputs within rtol of the largest |output|,
+    gradients within rtol of the largest |gradient|."""
+    _close(got[0], want[0], rtol, "output")
     top = max(float(g.abs().max()) for g in want[1].values())
     for name, g in got[1].items():
-        err = float((g - want[1][name]).abs().max())
-        assert err <= F64_RTOL * top, name
+        err = float((g.double() - want[1][name].double()).abs().max())
+        assert err <= rtol * top, f"{name}: {err:.3e} over {top:.3e}"
 
 
 @pytest.mark.parametrize("order", [1, 2, 3])
-def test_lg_layer_whole_outputs_index_form(index_form, order):
+def test_lg_layer_whole_outputs_index_form(order):
     """An LGLayer's node and edge outputs on every row, padded ones
-    included, through the index form and the composition (rule restored)."""
+    included, through the index form and the composition."""
     db = _batch("n16_m32")
     layer = layers.LGLayer(5, 1, 2, J=2, order=order,
                            generator=torch.Generator().manual_seed(4)).double()
@@ -236,9 +279,7 @@ def test_lg_layer_whole_outputs_index_form(index_form, order):
     xl = torch.randn(db.lg_src.shape + (1,), generator=gen, dtype=torch.float64)
     got = layer(bundles.DenseBundle.from_batch(db, 2, with_line_graph=True),
                 x, xl, db.node_mask, db.edge_mask)
-    want = layer(bundles.DenseBundle.from_batch(db, 2, with_line_graph=True,
-                                                one_hot=True),
-                 x, xl, db.node_mask, db.edge_mask)
+    want = layer(_CompositionBundle(db, 2), x, xl, db.node_mask, db.edge_mask)
     for a, b, name in zip(got, want, ("node", "edge")):
         _close(a, b, F64_RTOL, name)
 
@@ -274,57 +315,67 @@ def test_dispatch_rule(device, dtype, want):
     assert X.use_kernel(torch.device(device), dtype) is want
 
 
-@pytest.mark.parametrize("case", ["cpu", "bfloat16", "float64", "fused_ops"])
-def test_composition_paths_unchanged(monkeypatch, case):
-    """The CPU, bf16, float64 and fused_ops=True keep the one-hot
-    composition: with the rule's device test dropped (float32 would take
-    the index form), no wrapper is called, the bundle holds the one-hot
-    matrices and int64 reverse indices, its exchange is ops/dense.py's
-    functions bit for bit, and the model's output and gradients equal the
-    run under the rule as it is (the composition on the CPU) bit for bit."""
+def _launches():
+    return {name: getattr(X, name).launches for name in WRAPPERS}
+
+
+@pytest.mark.parametrize("case", ["cpu", "bfloat16", "float64", "bf16_rounding"])
+def test_composition_paths_unchanged(case):
+    """Off the kernel (the CPU in float32, float64, bf16 compute) the
+    exchange runs the plain versions: no wrapper's launch count moves,
+    and the model's output and gradients equal the run through the
+    one-hot composition, within 1e-6 in float32, 1e-12 in float64 and
+    2^-7 in bf16. bf16_rounding: the bf16 exchange (each op and a
+    gradient) equals the float32 exchange of its bf16 inputs, rounded to
+    bf16 once, bit for bit."""
     dtype = torch.float64 if case == "float64" else torch.float32
     db = _batch("n16_m32", dtype=dtype)
-    kw = {"bfloat16": dict(dtype=torch.bfloat16),
-          "fused_ops": dict(fused_ops=True)}.get(case, {})
-    want = _model_run(db, 2, 2, **kw)
-    if case != "cpu":
-        monkeypatch.setattr(X, "use_kernel",
-                            lambda device, dtype: dtype == torch.float32)
-    for name in WRAPPERS:
-        monkeypatch.setattr(X, name, lambda *a, **k: pytest.fail("wrapper called"))
-    got = _model_run(db, 2, 2, **kw)
-    assert torch.equal(got[0], want[0])
-    for name, g in got[1].items():
-        assert torch.equal(g, want[1][name]), name
-    b = bundles.DenseBundle.from_batch(db, 2, with_line_graph=True,
-                                       dtype=kw.get("dtype"),
-                                       one_hot=case == "fused_ops")
-    assert not b.index_form and b.rev.dtype == torch.int64
-    comp = _composition(db)
-    dt = kw.get("dtype", dtype)
-    xl = torch.randn(db.lg_src.shape + (2,), dtype=torch.float64,
-                     generator=torch.Generator().manual_seed(1)).to(dt)
-    assert torch.equal(b.pm_pd(xl), torch.cat(
-        [D.incidence_apply(b.s_src, b.s_dst, xl, False),
-         D.incidence_apply(b.s_src, b.s_dst, xl, True)], -1))
-    assert torch.equal(b.lg_graph_op(xl), D.lg_graph_op(
-        b.s_src, b.s_dst, b.w, b.rev, b.dl, xl, 2, b.edge_mask))
-    if dt != torch.bfloat16:
-        assert torch.equal(b.dl, comp["dl"])
+    kw = dict(dtype=torch.bfloat16) if case.startswith("bf") else {}
+    before = _launches()
+    if case != "bf16_rounding":
+        got = _model_run(db, 2, 2, **kw)
+        assert not X.use_kernel(db.lg_w.device, kw.get("dtype", dtype))
+        assert _launches() == before
+        rtol = {"cpu": CARD_RTOL, "float64": F64_RTOL, "bfloat16": BF16_RTOL}[case]
+        _close_runs(got, _model_run(db, 2, 2, composition=True, **kw), rtol)
+        return
+    b = bundles.DenseBundle.from_batch(db, 1, with_line_graph=True, **kw)
+    assert {t.dtype for t in (b.w, b.dl, b.edge_mask)} == {torch.bfloat16}
+    f32 = bundles.DenseBundle(
+        b.adj_powers.float(), b.deg.float(), 1, b.node_mask, b.src, b.dst,
+        b.rev, b.w.float(), b.dl.float(), b.edge_mask.float())
+    gen = torch.Generator().manual_seed(1)
+    N, M = db.x.shape[1], db.lg_src.shape[1]
+    for name, rows in (("pm_pd", M), ("pm_pd_t", N), ("lg_graph_op", M)):
+        t = torch.randn(db.x.shape[0], rows, 2, generator=gen).bfloat16()
+        t.requires_grad_()
+        out = getattr(b, name)(t)
+        assert out.dtype == torch.bfloat16, name
+        assert torch.equal(out, getattr(f32, name)(t.float()).bfloat16()), name
+        g = torch.randn(out.shape, generator=gen).bfloat16()
+        (got,) = torch.autograd.grad(out, t, g)
+        t32 = t.detach().float().requires_grad_()
+        (want,) = torch.autograd.grad(getattr(f32, name)(t32), t32, g.float())
+        assert torch.equal(got, want.bfloat16()), f"{name} gradient"
+    assert _launches() == before
 
 
-def test_index_form_taken_on_float32_with_the_rule(index_form, monkeypatch):
-    """The contrast of the test above: float32 with the rule's device test
-    dropped takes the index form on the batch's own int32 arrays, dl from
-    one nb_forward call."""
-    calls = []
+def test_index_form_taken_on_float32_with_the_rule(monkeypatch):
+    """Every bundle, in float32, float64 and bf16 compute, holds the
+    batch's own int32 arrays and takes dl from one nb_forward call."""
     real = X.nb_forward
-    monkeypatch.setattr(X, "nb_forward",
-                        lambda *a, **k: calls.append(1) or real(*a, **k))
-    db = _batch("n16_m32", dtype=torch.float32)
-    b = bundles.DenseBundle.from_batch(db, 1, with_line_graph=True)
-    assert b.index_form and b.s_src is None and len(calls) == 1
-    assert b.src is db.lg_src and b.rev is db.lg_rev
+    for dtype, compute in ((torch.float32, None), (torch.float64, None),
+                           (torch.float32, torch.bfloat16)):
+        calls = []
+        monkeypatch.setattr(X, "nb_forward",
+                            lambda *a, **k: calls.append(1) or real(*a, **k))
+        db = _batch("n16_m32", dtype=dtype)
+        b = bundles.DenseBundle.from_batch(db, 1, with_line_graph=True,
+                                           dtype=compute)
+        assert len(calls) == 1
+        assert b.src is db.lg_src and b.dst is db.lg_dst and b.rev is db.lg_rev
+        assert b.rev.dtype == torch.int32
+        assert b.dl.dtype == (compute or dtype)
 
 
 @pytest.mark.parametrize("kind, N, M, F, want", [
@@ -500,6 +551,39 @@ def test_kernels_match_plain_and_composition_on_the_card(cuda, case, F):
         (got_g,) = torch.autograd.grad(got, t, g)
         _close(got, want, CARD_RTOL, name)
         _close(got_g, want_g, CARD_RTOL, f"{name} gradient")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
+def test_plain_versions_on_the_card(cuda, dtype):
+    """Off float32 on the card (float64, bf16 compute) the bundle's
+    exchange runs the plain versions there: no launch is counted, and
+    each op and its gradient equal the CPU's within the dtype's tolerance
+    (index_add_ on the card sums in another order)."""
+    db = _batch("n16_m32", dtype=torch.float64 if dtype == torch.float64
+                else torch.float32)
+    compute = None if dtype == torch.float64 else dtype
+    cpu = bundles.DenseBundle.from_batch(db, 2, with_line_graph=True,
+                                         dtype=compute)
+    card = bundles.DenseBundle.from_batch(db.to(cuda), 2, with_line_graph=True,
+                                          dtype=compute)
+    rtol = F64_RTOL if dtype == torch.float64 else BF16_RTOL
+    before = _launches()
+    gen = torch.Generator().manual_seed(2)
+    N, M = db.x.shape[1], db.lg_src.shape[1]
+    for name, rows in (("pm_pd", M), ("pm_pd_t", N), ("lg_graph_op", M)):
+        t = torch.randn(db.x.shape[0], rows, 2, generator=gen).to(dtype)
+        g = torch.randn(getattr(cpu, name)(t).shape, generator=gen).to(dtype)
+        results = []
+        for b, dev in ((cpu, "cpu"), (card, cuda)):
+            x = t.to(dev).requires_grad_()
+            out = getattr(b, name)(x)
+            (grad,) = torch.autograd.grad(out, x, g.to(dev))
+            assert out.dtype == dtype, name
+            results.append((out, grad))
+        _close(results[1][0], results[0][0], rtol, name)
+        _close(results[1][1], results[0][1], rtol, f"{name} gradient")
+    assert _launches() == before
 
 
 # the line-graph cell's model: GNNLineGraph L 5, h 1, J 1, order 2; the

@@ -1,7 +1,8 @@
 """The port's dense line-graph GNN path against the JAX package, on the
 CPU: line-graph dense batches and the dense loader's line-graph batches
 (bit-equal), the edge operators of ops/dense.py with padding included,
-the fused and materialized bundles, the dense operator oracles (bit-equal,
+DenseBundle's index-form exchange against JAX's one-hot and fused
+bundles, the materialized bundle, the dense operator oracles (bit-equal,
 the original implementation's buggy builder included), GNNLineGraph in
 train and eval mode with its node and edge BN running stats, a line-graph
 layer's whole outputs (padded rows included), bf16 against f32, and the
@@ -9,7 +10,7 @@ flax converter. Weights are JAX's init, carried over by
 hgnn2_torch.convert.
 
 Tolerances: the edge operators within atol = rtol = 1e-6 (f32 matmuls
-and sums in another order); the fused bundle against the unfused one
+and sums in another order); the exchange against JAX's fused bundle
 within 1e-5 x max |value| (its matmuls also sum the zero blocks);
 GNNLineGraph and its layers within 1e-5 x max |value| (differences
 compound over the layers and BN's division by the batch std); bf16
@@ -185,7 +186,7 @@ def test_lg_graph_op_matches_jax(lg_batch, rng, J):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **OP_TOL)
     bundle = bundles.DenseBundle.from_batch(db, J, with_line_graph=True)
     jbundle = jbundles.DenseBundle.from_batch(jdb, J, with_line_graph=True)
-    assert bundle.rev.dtype == torch.int64 and bundle.has_line_graph
+    assert bundle.rev.dtype == torch.int32 and bundle.has_line_graph
     np.testing.assert_allclose(bundle.lg_graph_op(torch.from_numpy(xl)).numpy(),
                                np.asarray(jbundle.lg_graph_op(xl)), **OP_TOL)
     np.testing.assert_allclose(bundle.edge_features().numpy(),
@@ -194,25 +195,22 @@ def test_lg_graph_op_matches_jax(lg_batch, rng, J):
 
 
 def test_fused_bundle_matches_unfused_and_jax(lg_batch, rng):
-    """FusedLGBundle's node and edge inputs at J = 2 against the unfused
-    concatenations and JAX's FusedLGBundle, with equal widths and with the
-    first layer's mismatched ones (x 5 wide, xl 1)."""
+    """The port's update inputs at J = 2, [graph_op x | pm_pd xl] and
+    [lg_graph_op xl | pm_pd_t x], against JAX's FusedLGBundle node_input
+    and edge_input, with equal widths and with the first layer's
+    mismatched ones (x 5 wide, xl 1)."""
     db, jdb = lg_batch
     b = bundles.DenseBundle.from_batch(db, 2, with_line_graph=True)
     jb = jbundles.DenseBundle.from_batch(jdb, 2, with_line_graph=True)
-    fb, jfb = bundles.FusedLGBundle.from_dense(b), jbundles.FusedLGBundle.from_dense(jb)
-    _close(fb.t_node, jfb.t_node, 1e-6)
-    _close(fb.t_edge, jfb.t_edge, 1e-6)
-    B, N, M = b.s_src.shape
+    jfb = jbundles.FusedLGBundle.from_dense(jb)
+    B, N, M = db.x.shape[0], db.x.shape[1], db.lg_src.shape[1]
     for fx, fl in ((3, 3), (5, 1)):
         x = torch.from_numpy(rng.standard_normal((B, N, fx)).astype(np.float32))
         xl = torch.from_numpy(rng.standard_normal((B, M, fl)).astype(np.float32))
-        node = fb.node_input(x, xl)
-        _close(node, torch.cat([b.graph_op(x), b.pm_pd(xl)], -1))
-        _close(node, jfb.node_input(x.numpy(), xl.numpy()))
-        edge = fb.edge_input(x, xl)
-        _close(edge, torch.cat([b.lg_graph_op(xl), b.pm_pd_t(x)], -1))
-        _close(edge, jfb.edge_input(x.numpy(), xl.numpy()))
+        _close(torch.cat([b.graph_op(x), b.pm_pd(xl)], -1),
+               jfb.node_input(x.numpy(), xl.numpy()))
+        _close(torch.cat([b.lg_graph_op(xl), b.pm_pd_t(x)], -1),
+               jfb.edge_input(x.numpy(), xl.numpy()))
 
 
 def _materialized(recs, N, M, J):
@@ -283,11 +281,13 @@ def test_dense_operator_oracles_bit_equal(rng, n, p, J):
 
 
 def _models(jdb, in_features, dtype=None, **kw):
-    """A flax GNNLineGraph and the port's, both with JAX's init."""
+    """A flax GNNLineGraph and the port's, both with JAX's init; fused_ops
+    is JAX's option (the port's exchange has one form)."""
     compat = kw.pop("compat", False)
     jm = jmodels.GNNLineGraph(
         compat=jlayers.CompatConfig.reference() if compat else jlayers.CompatConfig(),
-        dtype=None if dtype is None else jnp.bfloat16, **kw)
+        dtype=None if dtype is None else jnp.bfloat16,
+        fused_ops=kw.pop("fused_ops", False), **kw)
     variables = _np(jm.init(jax.random.key(0), jdb, train=True))
     m = models.GNNLineGraph(
         in_features=in_features,
@@ -310,8 +310,9 @@ def _leaves(tree, prefix=()):
     (2, 2, True, False), (1, 1, False, True), (2, 1, True, True)])
 def test_gnn_line_graph_matches_jax(lg_batch, order, J, compat, fused):
     """L=3 h=2: a train-mode forward (batch statistics), the node and edge
-    BN running stats it leaves, and an eval-mode forward from them. Under
-    compat the padded rows leak through BN and the readout adds bias x N."""
+    BN running stats it leaves, and an eval-mode forward from them, against
+    JAX's model with fused_ops off and on. Under compat the padded rows
+    leak through BN and the readout adds bias x N."""
     db, jdb = lg_batch
     jm, variables, m = _models(jdb, 5, n_features=2, n_layers=3, J=J,
                                order=order, compat=compat, fused_ops=fused)

@@ -482,7 +482,6 @@ def test_profile_lggnn_split_on_the_cpu(tmp_path):
         assert g["exchange_spans_a_step"] == 3 * (_cfg()["L"] - 1) + 1
         assert g["exchange_bwd_nodes"] > 0
         assert g["device_us_a_step"] == g["rest_us"] == 0.0
-    for layout in ("--packed", "--fused"):
-        with pytest.raises(SystemExit):
-            profile_lggnn.main(["--split", layout, "--molecules", "32",
-                                "--device", "cpu", "--out", str(tmp_path)])
+    with pytest.raises(SystemExit):
+        profile_lggnn.main(["--split", "--packed", "--molecules", "32",
+                            "--device", "cpu", "--out", str(tmp_path)])

@@ -2,8 +2,9 @@
 profiling.trace (JAX's default directory, the trace kept when the block
 raises, nothing written in the working tree), parse_kernel_stats on a CPU
 profile and on device events, hgnn2_torch/scripts/profile_lggnn.py's
-build against scripts/profile_lggnn.py's (dense, packed and fused: one
-scanned epoch from JAX's init, the group counts), both profilers' main
+build against scripts/profile_lggnn.py's (dense, packed, and JAX's fused
+dense build against the port's one dense build: one scanned epoch from
+JAX's init, the group counts), both profilers' main
 at a tiny size writing JAX's files and keys (the committed
 runs/profile_lggnn/ and runs/profile_ccn1d/ outputs fix them), and a
 CCN1D step of profile_ccn1d's against JAX's make_train_step from JAX's
@@ -163,16 +164,14 @@ def lg_records():
     (False, False, 1e-5), (True, False, 1e-4), (False, True, 1e-5)])
 def test_build_matches_jax(lg_records, use_packed, fused, rtol):
     """build at 64 molecules, batch 32, h=2: the same groups, and one
-    scanned epoch from JAX's init gives JAX's loss."""
+    scanned epoch from JAX's init gives JAX's loss; fused sets JAX's
+    fused_ops, the port's dense build has one exchange."""
     recs, ts, jrecs, jts = lg_records
     jstate, jgroups, jscan, jn = jax_script("profile_lggnn").build(
         jrecs, jts, 2, 32, use_packed, fused)
     model, groups, scan_fn, n = profile_lggnn.build(
-        recs, ts, 2, 32, use_packed, fused, "cpu",
-        init_params=_variables(jstate))
+        recs, ts, 2, 32, use_packed, "cpu", init_params=_variables(jstate))
     assert n == jn == 2 and len(groups) == len(jgroups)
-    if not use_packed:
-        assert model.fused_ops == fused
     _, want = jtrain.run_epoch_scanned(jstate, jgroups, jscan)
     got = train.run_epoch_scanned(groups, scan_fn)
     np.testing.assert_allclose(got["loss"], float(want["loss"]), rtol=rtol)

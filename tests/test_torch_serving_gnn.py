@@ -295,11 +295,13 @@ def test_save_refuses_mismatched_specs(tmp_path, records, jrecords):
 
 
 @pytest.mark.parametrize("arch,kw", [
-    ("gnn", dict(J=2, gru=True)), ("lggnn", dict(J=2, order=3, fused_ops=True)),
+    ("gnn", dict(J=2, gru=True)), ("lggnn", dict(J=2, order=3)),
     ("packed_lggnn", dict(J=2, order=1))])
 def test_meta_rebuilds_the_model(tmp_path, records, arch, kw):
     """The meta carries what rebuilds the model (reference compat flags
-    included); the loaded bundle computes what the saved model does."""
+    included); the loaded bundle computes what the saved model does. A
+    line-graph meta written with a fused_ops entry (bundles exported while
+    GNNLineGraph had that option) loads and predicts the same."""
     gen = torch.Generator().manual_seed(3)
     c = CompatConfig.reference()
     if arch == "packed_lggnn":
@@ -321,14 +323,17 @@ def test_meta_rebuilds_the_model(tmp_path, records, arch, kw):
                         extra={"epoch": 7})
     meta = json.loads((tmp_path / "b" / "meta.json").read_text())
     for key in ("arch", "in_features", "n_features", "n_layers", "J", "order",
-                "gru", "compat_reference", "dim_output", "fused_ops", "static"):
+                "gru", "compat_reference", "dim_output", "static"):
         assert key in meta, key
     assert meta["compat_reference"] and meta["epoch"] == 7
     assert meta["J"] == 2 and meta["in_features"] == 5
+    if arch == "lggnn":
+        meta["fused_ops"] = True
+        (tmp_path / "b" / "meta.json").write_text(json.dumps(meta))
     sm = serving.load_bundle(str(tmp_path / "b"), device="cpu")
     assert type(sm.model) is type(m)
     assert sm.model.compat == c and sm.model.J == 2
-    for k in ("order", "gru", "fused_ops"):
+    for k in ("order", "gru"):
         if k in kw:
             assert getattr(sm.model, k) == kw[k], k
     with torch.inference_mode():
