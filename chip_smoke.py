@@ -26,6 +26,11 @@ Phases, each of which raises on failure (nothing is caught):
               buffers; hold MaskedBatchNorm's two kernels (bn_forward,
               bn_backward) against its composition of PyTorch ops at the
               GNN cell's shapes and time them beside it and their bound;
+              hold PowerLayer's two kernels (power_forward,
+              power_backward: graph_op, both convolutions, the ReLUs and
+              the batch norm) against their composition at the GNN
+              cell's shapes (1,024 molecules at node buckets 16 and 32,
+              fan-ins 15 and 6) and time them beside it and their bound;
               hold the line-graph exchange's six kernels (Pm/Pd, Pm^T/Pd^T
               and the NB apply, forward and backward) to their plain
               versions on the CPU bit for bit and to the one-hot
@@ -56,12 +61,13 @@ Phases, each of which raises on failure (nothing is caught):
               forward (one an all-reduce); host-clock and device ms per
               forward and molecules/s for the ring, the plain reduce and
               single-rank ops;
-  6. main     the main path, whose hand-written kernels are the batch
-              norm's two: train GNNSimple(L=15, h=1, J=1) through
+  6. main     the main path, whose hand-written kernels are the power
+              layer's two: train GNNSimple(L=15, h=1, J=1) through
               cli.common.run_experiment on the card (20,480 synthetic
               molecules, 2,048 a step, 2 epochs, Adamax at lr 3e-4) from
-              seeded flax-layout weights; check the BN kernels' launches
-              (the batch norms times the train forwards), finite losses, the first steps' losses, the step-0
+              seeded flax-layout weights; check the power-layer kernels'
+              launches (the power layers times the train forwards; no BN
+              kernel), finite losses, the first steps' losses, the step-0
               gradients and BN running stats, and eval predictions on a
               valid batch against the CPU; the same batch through
               GNNSimple(L=3, h=2) with J=2, the GRU update and the
@@ -70,11 +76,12 @@ Phases, each of which raises on failure (nothing is caught):
               step (host clock, device split by CUDA events, the CUDA
               kernels of each part by torch.profiler, the card's busy
               share). Phase 4 prints the same for the CCN steps;
-  7. lggnn    the line-graph GNN, which runs the batch norm's kernels too:
+  7. lggnn    the line-graph GNN, which runs the batch norm's kernels:
               train GNNLineGraph(L=5, h=1, J=1, update order 2) through
               cli.common.run_experiment on the card (the same 20,480
               molecules, 2,048 a step, 2 epochs, Adamax at lr 3e-4) from
-              seeded flax-layout weights; check finite losses, the first
+              seeded flax-layout weights; check the BN kernels' launches
+              (the batch norms times the train forwards), finite losses, the first
               steps' losses, the step-0 gradients and the node and edge
               BN running stats, and eval predictions on a valid batch
               against the CPU; GNNLineGraph(L=3, h=2, J=2) with update
@@ -696,6 +703,7 @@ def phase_kernels(dev) -> dict[str, dict]:
     for key, C in (("K1", 5), ("K2", 2), ("K3", 5), ("K4", 2)):
         rows[key].update(timed[(key, C)])
     rows.update(_bn_kernels(dev))
+    rows.update(_power_kernels(dev))
     rows.update(_lg_kernels(dev))
     return rows
 
@@ -790,6 +798,102 @@ def _bn_kernels(dev) -> dict[str, dict]:
                   f"{r['ms']:.4f} ms, {r['ms_in_run']:.4f} ms in a run of "
                   f"{RUN_LAUNCHES}, plain composition {r['plain_ms']:.4f} ms, "
                   f"bound {r['bound_ms']:.5f} ms (bytes), library none")
+    return rows
+
+
+# the GNN cell's power layers: 1,024 molecules at node buckets 16 and 32,
+# layer 0's input width 5 (fan-in 15) and the others' 2 (fan-in 6), h 1
+POWER_SHAPES = [(1024, 16, 5), (1024, 16, 2), (1024, 32, 5), (1024, 32, 2)]
+
+
+def _power_kernels(dev) -> dict[str, dict]:
+    """PowerLayer's two kernels (ops/power_layer.py) against the plain
+    composition at the GNN cell's shapes (POWER_SHAPES; QM9-shaped graphs
+    of the synthetic pool, J = 1, h = 1): the output, z, the statistics
+    and every gradient, then each kernel's time beside its byte bound and
+    the composition's (forward: its ops; backward: autograd's through
+    them). Returns the two rows of the kernels line, at the last shape."""
+    from hgnn2_torch.data import batching, qm9
+    from hgnn2_torch.ops import dense, power_layer
+
+    gen = torch.Generator(dev).manual_seed(0)
+    src = "hgnn2_torch/ops/csrc/power_layer.cu"
+    replaces = "none (XLA fuses the layer)"
+    rows = {
+        "Power forward": dict(name="power_forward", route="cuda", source=src,
+                              replaces=replaces, max_abs_err=0.0,
+                              library_ms=None),
+        "Power backward": dict(name="power_backward", route="cuda", source=src,
+                               replaces=replaces, max_abs_err=0.0,
+                               library_ms=None),
+    }
+    recs = sorted(qm9.synthetic_qm9_like(4096, seed=0), key=lambda r: r.n_nodes)
+    for B, N, fi in POWER_SHAPES:
+        chunk = recs[:B] if N == 16 else recs[-B:]
+        batch = next(iter(batching.DenseLoader(chunk, B, task=0, device=dev)))
+        if batch.x.shape[1] != N:
+            raise AssertionError(f"the {N}-slot batch came out at {batch.x.shape[1]}")
+        A, deg = dense.adjacency_powers(batch.adj, 1), dense.degrees(batch.adj)
+        m = batch.node_mask
+        x = torch.randn(B, N, fi, device=dev, generator=gen)
+        w1, w2 = (0.3 * torch.randn(1, 3 * fi, device=dev, generator=gen)
+                  for _ in range(2))
+        b1, b2, scale, bias = (0.1 * torch.randn(n, device=dev, generator=gen)
+                               for n in (1, 1, 2, 2))
+        rm, rs = torch.zeros(2, device=dev), torch.ones(2, device=dev)
+        g = torch.randn(B, N, 2, device=dev, generator=gen)
+        leaves = (x, w1, b1, w2, b2, scale, bias)
+        label = f"B={B} N={N} fan-in {3 * fi}"
+
+        def args(lv):
+            x_, w1_, b1_, w2_, b2_, s_, bi_ = lv
+            return (x_, A, deg, m, m, w1_, b1_, w2_, b2_, s_, bi_, rm.clone(),
+                    rs.clone(), 0.1, 1e-5, True)
+
+        lp = [t.clone().requires_grad_() for t in leaves]
+        plain, z_plain, _ = power_layer.composed(*args(lp))
+        want = torch.autograd.grad(plain, lp, g, retain_graph=True)
+        lk = [t.clone().requires_grad_() for t in leaves]
+        out = power_layer.power_layer(*args(lk))
+        got = torch.autograd.grad(out, lk, g)
+        torch.cuda.synchronize()
+        rows["Power forward"]["max_abs_err"] = max(
+            rows["Power forward"]["max_abs_err"],
+            _compare(f"Power forward {label}", out.detach(), plain.detach()))
+        _, z, stats = power_layer.power_forward(*args(leaves))
+        _compare(f"Power forward z {label}", z, z_plain.detach())
+        for name, a, b in zip(("dx", "g_w1", "g_b1", "g_w2", "g_b2", "g_scale",
+                               "g_bias"), got, want):
+            _grad_check(f"Power backward {name} {label}", a, b)
+            rows["Power backward"]["max_abs_err"] = max(
+                rows["Power backward"]["max_abs_err"], float((a - b).abs().max()))
+        fa = args(leaves)
+        kf = lambda: power_layer.power_forward(*fa)
+        kb = lambda: power_layer.power_backward(g, x, A, deg, m, m, w1, w2, scale,
+                                                z, stats, True)
+        pf = lambda: power_layer.composed(*fa)
+        pb = lambda: torch.autograd.grad(plain, lp, g, retain_graph=True)
+        # each input read once, each output written once
+        fwd_bytes = _nbytes(x, A, deg, m, m, w1, b1, w2, b2, scale, bias, rm,
+                            rs, z, z, stats, rm, rs)
+        bwd_bytes = _nbytes(g, x, A, deg, m, m, w1, w2, scale, z, stats, x, w1,
+                            b1, w2, b2, scale, bias)
+        # the composition's ~20 launches each way, autograd's from its
+        # engine thread, enqueue behind a longer spin than one kernel's
+        rows["Power forward"].update(
+            ms=_time_ms(kf), ms_in_run=_time_run_ms(kf),
+            plain_ms=_time_ms(pf, busy=10 * BUSY_CYCLES),
+            bound_ms=_bound(fwd_bytes, 0)[0], bound_by="bytes")
+        rows["Power backward"].update(
+            ms=_time_ms(kb), ms_in_run=_time_run_ms(kb),
+            plain_ms=_time_ms(pb, busy=10 * BUSY_CYCLES),
+            bound_ms=_bound(bwd_bytes, 0)[0], bound_by="bytes")
+        for key in ("Power forward", "Power backward"):
+            r = rows[key]
+            print(f"  {key} {r['name']} at {label}: kernel {r['ms']:.4f} ms, "
+                  f"{r['ms_in_run']:.4f} ms in a run of {RUN_LAUNCHES}, plain "
+                  f"composition {r['plain_ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.5f} ms (bytes), library none")
     return rows
 
 
@@ -1007,6 +1111,7 @@ def _breakdown(sm, chunk) -> None:
 
 K_KEYS = ("K1", "K2", "K3", "K4", "K5")
 BN_KEYS = ("BN forward", "BN backward")
+POWER_KEYS = ("Power forward", "Power backward")
 # the line-graph exchange's kernels (ops/lg_exchange.py), by wrapper
 LG_WRAPPERS = {"LG Pm|Pd": "pm_pd_forward", "LG Pm|Pd backward": "pm_pd_backward",
                "LG Pm^T|Pd^T": "pm_pd_t_forward",
@@ -1017,21 +1122,31 @@ LG_KEYS = tuple(LG_WRAPPERS)
 _LG_APPLIES = {"pm_pd": ("LG Pm|Pd", "LG Pm|Pd backward"),
                "pm_pd_t": ("LG Pm^T|Pd^T", "LG Pm^T|Pd^T backward"),
                "lg_graph_op": ("LG NB", "LG NB backward")}
-# the MaskedBatchNorm calls and the exchange's applies since _zero that
-# must launch each BN and exchange kernel, counted by hooks that are on
-# from _zero to _read
-_calls = dict.fromkeys(BN_KEYS + LG_KEYS, 0)
+# the MaskedBatchNorm and PowerLayer calls and the exchange's applies since
+# _zero that must launch each BN, power-layer and exchange kernel, counted
+# by hooks that are on from _zero to _read
+_calls = dict.fromkeys(BN_KEYS + POWER_KEYS + LG_KEYS, 0)
 _hooks = []
 
 
-def _bn_seen(module, args) -> None:
+def _module_seen(module, args) -> None:
     """Counts a MaskedBatchNorm call that takes the kernels
     (bn_fused.use_kernel on its compute dtype): one bn_forward, and one
-    bn_backward at its backward where it runs with grad on. A replayed
-    graph launches them with no Python call, and neither side counts it."""
+    bn_backward at its backward where it runs with grad on; and likewise a
+    PowerLayer call that takes its kernels (PowerLayer.takes_kernel): one
+    power_forward, and one power_backward where it runs with grad on. A
+    replayed graph launches them with no Python call, and neither side
+    counts it."""
     from hgnn2_torch.nn import layers
     from hgnn2_torch.ops import bn_fused
 
+    if isinstance(module, layers.PowerLayer):
+        x = args[1]
+        if module.takes_kernel(args[0], x):
+            _calls["Power forward"] += 1
+            _calls["Power backward"] += torch.is_grad_enabled() and (
+                x.requires_grad or module.cv1.weight.requires_grad)
+        return
     if not isinstance(module, layers.MaskedBatchNorm):
         return
     h = args[0]
@@ -1067,13 +1182,15 @@ def _lg_seen(name, apply):
 
 
 def _install_hooks() -> None:
-    """The module hook of the batch norms, and DenseBundle's from_batch
+    """The module hook of the batch norms and power layers, and
+    DenseBundle's from_batch
     (the NB degrees of a bundle on the kernels: one NB apply) and exchange
     methods wrapped to count; each undone by _read."""
     from hgnn2_torch.nn.bundles import DenseBundle
 
     _hooks.append(
-        torch.nn.modules.module.register_module_forward_pre_hook(_bn_seen).remove)
+        torch.nn.modules.module.register_module_forward_pre_hook(
+            _module_seen).remove)
     build = DenseBundle.__dict__["from_batch"]
 
     def from_batch(cls, *a, **k):
@@ -1091,8 +1208,10 @@ def _install_hooks() -> None:
 
 def _counters() -> dict:
     """The kernel wrappers whose ``launches`` the phases count: K1-K5,
-    MaskedBatchNorm's two kernels and the line-graph exchange's six."""
-    from hgnn2_torch.ops import bn_fused, ccn_fused, lg_exchange, ring
+    MaskedBatchNorm's two kernels, PowerLayer's two and the line-graph
+    exchange's six."""
+    from hgnn2_torch.ops import (bn_fused, ccn_fused, lg_exchange, power_layer,
+                                 ring)
 
     return {"K1": ccn_fused.fused_contract_1d_forward,
             "K2": ccn_fused.fused_contract_1d_backward,
@@ -1101,12 +1220,14 @@ def _counters() -> dict:
             "K5": ring.ring_psum,
             "BN forward": bn_fused.bn_forward,
             "BN backward": bn_fused.bn_backward,
+            "Power forward": power_layer.power_forward,
+            "Power backward": power_layer.power_backward,
             **{k: getattr(lg_exchange, w) for k, w in LG_WRAPPERS.items()}}
 
 
 def _zero(counters) -> None:
-    """Sets every launch count to 0, and starts counting the BN calls and
-    the exchange's applies."""
+    """Sets every launch count to 0, and starts counting the BN and power
+    layer calls and the exchange's applies."""
     for c in counters.values():
         c.launches = 0
     _calls.update(dict.fromkeys(_calls, 0))
@@ -1115,23 +1236,24 @@ def _zero(counters) -> None:
 
 
 def _read(counters) -> dict[str, int]:
-    """Every kernel's launches since _zero. Raises unless each BN and
-    exchange kernel launched once for each call or apply that must launch
-    it."""
+    """Every kernel's launches since _zero. Raises unless each BN, power
+    layer and exchange kernel launched once for each call or apply that
+    must launch it."""
     got = {k: c.launches for k, c in counters.items()}
     while _hooks:
         _hooks.pop()()
     if any(got[k] != _calls[k] for k in _calls):
-        raise AssertionError(f"BN and exchange kernel launches {got} against the"
-                             f" MaskedBatchNorm calls and exchange applies that"
-                             f" take them {_calls}")
+        raise AssertionError(f"BN, power-layer and exchange kernel launches "
+                             f"{got} against the MaskedBatchNorm and PowerLayer "
+                             f"calls and exchange applies that take them "
+                             f"{_calls}")
     return got
 
 
 def _want(counters) -> dict[str, int]:
-    """The launches of a path that runs none of K1-K5: each BN and
-    exchange kernel's count is that of the calls that take it (as _read
-    checks)."""
+    """The launches of a path that runs none of K1-K5: each BN, power
+    layer and exchange kernel's count is that of the calls that take it
+    (as _read checks)."""
     return {k: _calls.get(k, 0) for k in counters}
 
 
@@ -1673,8 +1795,10 @@ def _forward_errs(got: tuple, want: tuple) -> tuple[float, float, float]:
 def phase_main(dev, card: str) -> dict[str, int]:
     """Train GNNSimple(L=15, h=1, J=1) through run_experiment on the card
     (``dev``) and hold it to the CPU. Returns each kernel's launches in
-    that run: the two BN kernels at each of the model's batch norms, at
-    each Python-level train forward and its backward, and none of K1-K5."""
+    that run: the two power-layer kernels at each of the model's power
+    layers, at each Python-level train forward and its backward, and none
+    of K1-K5 or the BN kernels (the power layers' kernels take the batch
+    norm)."""
     from hgnn2_torch.cli import common
     from hgnn2_torch.data import batching, synthetic
     from hgnn2_torch.nn import layers, models
@@ -1696,16 +1820,17 @@ def phase_main(dev, card: str) -> dict[str, int]:
     launches = _read(counters)
     losses = [(row["train_loss"], row["valid_loss"], row["test_loss"])
               for row in history]
-    n_bn = sum(isinstance(m, layers.MaskedBatchNorm) for m in model.modules())
+    n_power = sum(isinstance(m, layers.PowerLayer) for m in model.modules())
     want = _want(counters)
-    want.update(dict.fromkeys(BN_KEYS, n_bn * runs.train))
+    want.update(dict.fromkeys(POWER_KEYS, n_power * runs.train))
+    want.update(dict.fromkeys(BN_KEYS, 0))
     print(f"  GNNSimple L=15 h=1 J=1: run_experiment, {TRAIN_EPOCHS} epochs x "
           f"{n_train // MAIN_BS} steps of {MAIN_BS} molecules, {secs:.2f} s host "
           f"clock on {card} (data generation and batch builds included); "
           f"(train, valid, test) loss per epoch {losses}; launches {launches} "
-          f"(expected {want}: {n_bn} batch norms x {runs.train} Python-level "
-          f"train forwards, the warm-up runs and captures; {runs.replays} "
-          f"graph replays launch them besides)")
+          f"(expected {want}: {n_power} power layers x {runs.train} "
+          f"Python-level train forwards, the warm-up runs and captures, and "
+          f"no BN kernel; {runs.replays} graph replays launch them besides)")
     if len(history) != TRAIN_EPOCHS or not all(
             np.isfinite(v) for row in history for v in row.values()):
         raise AssertionError(f"GNNSimple: training history not finite: {history}")
@@ -1796,7 +1921,7 @@ def phase_lggnn(dev, card: str) -> dict[str, int]:
     norms, the exchange's six at its applies, none of K1-K5."""
     from hgnn2_torch.cli import common
     from hgnn2_torch.data import batching, synthetic
-    from hgnn2_torch.nn import models
+    from hgnn2_torch.nn import layers, models
     from hgnn2_torch.nn.bundles import DenseBundle
     from hgnn2_torch.nn.layers import CompatConfig
 
@@ -1810,8 +1935,9 @@ def phase_lggnn(dev, card: str) -> dict[str, int]:
     _zero(counters)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model, history = common.run_experiment(cfg, init_params=params)  # the main path
-    torch.cuda.synchronize()
+    with _Runs(models.GNNLineGraph) as runs:
+        model, history = common.run_experiment(cfg, init_params=params)  # the main path
+        torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = _read(counters)
     losses = [(row["train_loss"], row["valid_loss"], row["test_loss"])
@@ -1830,6 +1956,15 @@ def phase_lggnn(dev, card: str) -> dict[str, int]:
             or not all(launches[k] for k in LG_KEYS)):
         raise AssertionError(f"GNNLineGraph launched a CCN or ring kernel, or "
                              f"missed a BN or exchange kernel: {launches}")
+    # the batch norm's kernels at each of its node and edge batch norms, at
+    # each Python-level train forward (warm-ups and captures) and backward
+    n_bn = sum(isinstance(m, layers.MaskedBatchNorm) for m in model.modules())
+    want_bn = dict.fromkeys(BN_KEYS, n_bn * runs.train)
+    print(f"  BN launches {[launches[k] for k in BN_KEYS]} (expected "
+          f"{n_bn} batch norms x {runs.train} Python-level train forwards; "
+          f"{runs.replays} graph replays launch them besides)")
+    if {k: launches[k] for k in BN_KEYS} != want_bn or not runs.train:
+        raise AssertionError(f"GNNLineGraph: BN launches {launches} != {want_bn}")
 
     # as in phase 6: a cv1/cv2 bias that only shifts what BN subtracts has
     # a rounding-level gradient, held against GRAD_FLOOR x the model's max

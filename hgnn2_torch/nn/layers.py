@@ -18,7 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from hgnn2_torch.ops import bn_fused
+from hgnn2_torch.nn.bundles import DenseBundle
+from hgnn2_torch.ops import bn_fused, power_layer
 from hgnn2_torch.parallel import spmd
 
 
@@ -180,7 +181,12 @@ class GRUUpdate(nn.Module):
 class PowerLayer(nn.Module):
     """One power-GNN iteration over x1 = bundle.graph_op(x):
     BN(concat([relu(cv2(x1)), relu(cv1(x1))])), the concat in the order
-    (cv2, cv1). gru applies GRUUpdate(x1, z) to the concat z before BN."""
+    (cv2, cv1). gru applies GRUUpdate(x1, z) to the concat z before BN.
+    In train mode on CUDA in float32 over a DenseBundle, without the GRU
+    or pooled statistics and within the kernels' shapes
+    (power_layer.use_kernel), the whole layer is one kernel forward and
+    one backward (ops/power_layer.py); elsewhere it runs as PyTorch ops,
+    its batch norm through self.bn."""
 
     def __init__(self, fan_in: int, features_out: int,
                  compat: CompatConfig = CompatConfig(),
@@ -196,8 +202,24 @@ class PowerLayer(nn.Module):
         self.bn = MaskedBatchNorm(2 * features_out, compat=compat,
                                   axis_name=bn_axis, generator=generator)
 
+    def takes_kernel(self, bundle, x: torch.Tensor) -> bool:
+        """Whether a call on (bundle, x) runs the kernels
+        (power_layer.use_kernel over a DenseBundle with a node mask)."""
+        dense = (isinstance(bundle, DenseBundle)
+                 and bundle.node_mask is not None)
+        return power_layer.use_kernel(
+            x, bundle.adj_powers if dense else None, self.cv1.out_features,
+            self.training, self.dtype, self.bn.axis_name, self.gru is not None)
+
     def forward(self, bundle, x: torch.Tensor,
                 mask: torch.Tensor) -> torch.Tensor:
+        if self.takes_kernel(bundle, x):
+            bn = self.bn
+            return power_layer.power_layer(
+                x, bundle.adj_powers, bundle.deg, bundle.node_mask, mask,
+                self.cv1.weight, self.cv1.bias, self.cv2.weight,
+                self.cv2.bias, bn.scale, bn.bias, bn.mean, bn.std,
+                bn.momentum, bn.eps, bn.compat.mask_bn_output)
         x1 = bundle.graph_op(x)
         z = pair_conv(self.cv1, self.cv2, x1, True, self.dtype)
         if self.gru is not None:

@@ -30,7 +30,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hgnn2_torch"
 SOURCES = {"ccn_fused": "ccn_fused.cu", "ring": "ring.cu",
-           "bn_fused": "bn_fused.cu", "lg_exchange": "lg_exchange.cu"}
+           "bn_fused": "bn_fused.cu", "lg_exchange": "lg_exchange.cu",
+           "power_layer": "power_layer.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

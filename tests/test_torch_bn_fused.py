@@ -331,7 +331,9 @@ def test_kernels_in_a_captured_graph(cuda):
 @pytest.mark.requires_cuda
 def test_recalibration_through_the_kernel(cuda, monkeypatch):
     """make_bn_recalibration's no-grad train forwards, captured, through
-    the kernel against the same with the rule forced to the composition."""
+    the kernel against the same with the rule forced to the composition.
+    GNNSimple with the GRU update: its layers run the batch norm as a
+    module (without the GRU the power layer's own kernels take it)."""
     from hgnn2_torch.data import batching, qm9
     from hgnn2_torch.nn import models
     from hgnn2_torch.training import train
@@ -344,6 +346,7 @@ def test_recalibration_through_the_kernel(cuda, monkeypatch):
         if not kernel:
             monkeypatch.setattr(bn_fused, "use_kernel", lambda *a: False)
         model = models.GNNSimple(in_features=5, n_features=2, n_layers=3,
+                                 gru=True,
                                  generator=torch.Generator().manual_seed(0)).to(cuda)
         launches = bn_fused.bn_forward.launches
         train.recalibrate_bn(model, groups=groups)
